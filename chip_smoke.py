@@ -20,19 +20,35 @@ Each kernel is held against its plain PyTorch version on the same inputs on
 the card, and K1 against the port's algorithmic reference (``make_solver``,
 on the CPU) at a small size. The kernels' launch counters are zeroed just
 before the main path and read just after. Then kernel and plain version are
-timed with CUDA events. Any failed check raises: the script exits nonzero
-and prints no result line. Without a CUDA device it refuses to run.
+timed with CUDA events.
+
+Then the roofline path (``ros2_mpc_tpu_torch.utils.roofline``), its own
+counters zeroed just before it and read just after: K3 (``csrc/chain.cu``)
+measures the card's per-op-class peaks and the loop overhead at K1's
+geometry, K1 and K2 rerun the banks with their executed-work counters, and
+the ledgers turn those into FLOP per solve, achieved GFLOP/s, the bound
+(the larger of FLOP over 67 TFLOP/s and bytes over 3.35 TB/s, the H100's
+published FP32 and HBM rates) and each bank's share of it, with the phase,
+warp-divergence and loop-overhead shares. K3 is held against its plain
+version ``chain`` bit for bit, for all four op classes at both of the
+path's geometries, and its SASS is read back (``cuobjdump``) to show the
+trip loop was not unrolled away.
+
+Any failed check raises: the script exits nonzero and prints no result
+line. Without a CUDA device it refuses to run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches, deviation and times.
+lists each kernel with its launches, deviation, times and bound.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -47,6 +63,14 @@ N = 20  # horizon of the bank cells
 INERT, LIVE = (1e-4, 1e-4), (5e-4, 1e-3)
 MAX_OUT_FRAC = 1e-3
 MAX_CONV_GAP = 2e-3
+# The H100 SXM's published rates (NVIDIA's H100 datasheet): float32
+# outside the tensor cores, and HBM3.
+FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# K3 against its plain version `chain`: bit-equal (0 ulp apart) at both of
+# the roofline path's geometries, (rows, cols, threads per block)
+CHAIN_MAX_ULP = 0
+CHAIN_GEOMETRIES = ((1056, 256, 256), (32, 128, 64))
+MAX_SHARE = 1.05  # a share of a bound above this means a counting fault
 
 
 def headline_bank(rng, B):
@@ -124,6 +148,41 @@ def compare(name, sol, ref, band):
     return float(dU.max())
 
 
+def bound_ms(flops, nbytes):
+    """The least time the card could take: (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def chain_loop_bodies(lib_path, cuobjdump):
+    """{(op code, unroll): opcodes of the trip loop} of K3's instantiations,
+    from the library's SASS: the instructions from the target of the
+    widest backward branch to that branch."""
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(lib_path)], capture_output=True, text=True, check=True
+    ).stdout
+    bodies = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"chain_kernelILi(\d)ELi(\d+)E", func.split("\n", 1)[0])
+        if not m:
+            continue
+        instr = []
+        for line in func.splitlines():
+            mi = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if mi:
+                text = re.sub(r"^@!?U?P\w+\s+", "", mi.group(2))
+                instr.append((int(mi.group(1), 16), text.split()[0], text))
+        loops = [
+            (int(t.group(1), 16), a)
+            for a, op, text in instr
+            if op == "BRA" and (t := re.search(r"0x([0-9a-f]+)", text)) and int(t.group(1), 16) < a
+        ]
+        if loops:
+            lo, hi = max(loops, key=lambda ab: ab[1] - ab[0])
+            bodies[(int(m.group(1)), int(m.group(2)))] = [op for a, op, _ in instr if lo <= a <= hi]
+    return bodies
+
+
 def cuda_ms(fn, *args, reps=5):
     """Median over `reps` runs of fn(*args), in ms on CUDA events, after a
     warm-up run."""
@@ -159,6 +218,8 @@ def main() -> int:
         single_scenario,
     )
     from ros2_mpc_tpu_torch.solver.packed import make_packed_point_stab
+    from ros2_mpc_tpu_torch.utils import roofline as rl
+    from ros2_mpc_tpu_torch.utils.telemetry import profile_trace
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -177,6 +238,16 @@ def main() -> int:
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    # K3's trip loop must stay a loop: at unroll 1 one FFMA and the branch
+    bodies = chain_loop_bodies(_build.library_path(), Path(_build._nvcc()).parent / "cuobjdump")
+    names = {code: op for op, (code, *_) in rl.CHAIN_OPS.items()}
+    for (code, unroll), body in sorted(bodies.items()):
+        counts = {k: sum(o.startswith(k) for o in body) for k in ("FFMA", "MUFU", "BRA")}
+        print(f"K3 SASS {names[code]} unroll {unroll}: trip loop of {len(body)} instructions {counts}", end="")
+        print(f": {' '.join(body)}" if len(body) <= 8 else "")
+    u1, u16 = bodies.get((0, 1), []), bodies.get((0, 16), [])
+    if u1.count("FFMA") != 1 or not u1 or u1[-1] != "BRA" or u16.count("FFMA") != 16:
+        raise AssertionError(f"K3's fma trip loop is not one FFMA and a branch: {u1} / {u16}")
 
     params = Params()
     n_obs = params.n_obstacle_points
@@ -260,7 +331,7 @@ def main() -> int:
 
     # ---- K1 against the algorithmic reference (make_solver, CPU), small
     fast = SolverSettings.fast()
-    prob_ref = make_point_stabilization(params, horizon=N, reference_parity=False, settings=fast)
+    prob_ref = make_point_stabilization(params, horizon=N, reference_parity=False, settings=fast, device="cpu")
     th_small = {k: v[:4].cpu() for k, v in th_obs.items()}
     ref = torch.func.vmap(prob_ref.solve)(th_small, torch.zeros(4, N, 2))
     got = make_cuda_point_stab_solver(prob_ref.ocp, fast)(
@@ -275,13 +346,154 @@ def main() -> int:
     # ---- 6. timing, kernel and plain version alternating
     times = {}
     for name, s, th in (("K1", k1, th_main), ("K2", k2, th_trk)):
-        times[name] = (cuda_ms(s, th, U0), cuda_ms(s.plain, th, U0))
+        times[name] = (cuda_ms(s, th, U0), cuda_ms(s.plain, th, U0, reps=3))
         ms, plain_ms = times[name]
         print(
-            f"timing {name} B={B} N={N}: kernel {ms:.3f} ms ({B / ms * 1e3:.0f} solves/s), "
-            f"plain {plain_ms:.1f} ms ({B / plain_ms * 1e3:.0f} solves/s), median of 5 -- {card}",
+            f"timing {name} B={B} N={N}: kernel {ms:.3f} ms ({B / ms * 1e3:.0f} solves/s, median "
+            f"of 5), plain {plain_ms:.1f} ms ({B / plain_ms * 1e3:.0f} solves/s, median of 3) -- {card}",
             flush=True,
         )
+    ms_obs = cuda_ms(k1, th_obs, U0)
+    print(f"timing K1 obstacle-active bank: kernel {ms_obs:.3f} ms, median of 5 -- {card}", flush=True)
+
+    # ---- 7. the roofline path, with its launch counters zeroed just before
+    k3 = rl.chain_kernel
+    k1_cnt = make_cuda_point_stab_solver(prob.ocp, prob.settings, with_counters=True)
+    k2_cnt = make_cuda_tracking_solver(prob_t.ocp, prob_t.settings, with_counters=True)
+    for s in (k3, k1_cnt, k2_cnt):
+        s.launches = 0
+    t0 = time.perf_counter()
+    peaks = rl.measure_vpu_peaks(device=dev)
+    overhead = rl.measure_loop_overhead(device=dev)
+    counted = {
+        "K1 headline": (th_main, *k1_cnt(th_main, U0)),
+        "K1 obstacle-active": (th_obs, *k1_cnt(th_obs, U0)),
+        "K2 tracking": (th_trk, *k2_cnt(th_trk, U0)),
+    }
+    torch.cuda.synchronize()
+    launches_rl = {"K3": k3.launches, "K1": k1_cnt.launches, "K2": k2_cnt.launches}
+    print(f"launch counters after the roofline path ({time.perf_counter() - t0:.1f} s): {launches_rl}")
+    for name, n in launches_rl.items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched on the roofline path")
+    for (name, (_, sol, _)), ref in zip(counted.items(), (sol_main, sol_obs, sol_trk)):
+        if not torch.equal(sol.U, ref.U):  # the counters change no arithmetic
+            raise AssertionError(f"{name}: the counted solve differs from the main path's")
+    print(
+        f"K3 peaks ({rl.PEAK_ROWS}x{rl.PEAK_COLS}, block {rl.CHAIN_BLOCK}): "
+        f"FMA {peaks['fma_flops_per_s'] / 1e12:.3f} TFLOP/s ({peaks['fma_flops_per_s'] / FP32_FLOPS:.3f} "
+        f"of 67), exp {peaks['exp_per_s'] / 1e9:.1f}, log {peaks['log_per_s'] / 1e9:.1f}, sincos "
+        f"{peaks['sincos_per_s'] / 1e9:.1f} Gop/s; loop overhead {overhead * 1e9:.3f} ns per trip "
+        f"(4096 elements, block {BLOCK}) -- {card}",
+        flush=True,
+    )
+    if peaks["fma_flops_per_s"] > MAX_SHARE * FP32_FLOPS:
+        raise AssertionError("K3's FMA rate is above the card's peak: the chain was folded")
+    # the cycle model with every arith op one FP32 instruction (FMUL and FADD
+    # take an FFMA's slot under -fmad=false): half the FMA peak's FLOP rate
+    peaks_instr = dict(peaks, fma_flops_per_s=peaks["fma_flops_per_s"] / 2)
+
+    # ledgers: each bank's executed work, the bound and the shares
+    n_k2_bytes = 4.0 * (3 + 3 * N + 2 * N + 11 + 2 * n_obs + 2 * N + 2 * N + 3 * (N + 1) + 4)
+    ledgers = {  # name: (ledger, bytes per scenario, kernel ms)
+        "K1 headline": (rl.point_stab_solve_flops, rl.point_stab_hbm_bytes(N, n_obs), times["K1"][0]),
+        "K1 obstacle-active": (rl.point_stab_solve_flops, rl.point_stab_hbm_bytes(N, n_obs), ms_obs),
+        "K2 tracking": (
+            lambda *a, **k: rl.tracking_solve_flops(*a, terminal_quad=True, **k), n_k2_bytes, times["K2"][0],
+        ),
+    }  # fmt: skip
+    warp = lambda a: np.repeat(a.reshape(-1, 32).max(axis=1), 32)  # noqa: E731  (lane max)
+    bounds = {}
+    for name, (th, _, cnt) in counted.items():
+        ledger, bytes_per, ms = ledgers[name]
+        iters = cnt["iters"].cpu().numpy().astype(float)
+        ls = cnt["ls_rollouts"].cpu().numpy().astype(float)
+        obs = [th[k].cpu().numpy() for k in ("obs_x", "obs_y", "obstacle_weight")]
+        P = rl.computed_obstacle_points(*obs, tile_s=1, tile_l=1, chunk=1)
+        P_w = rl.computed_obstacle_points(*obs, tile_s=1, tile_l=32, chunk=1)
+        count = rl.bank_flops(ledger, N, P, iters, ls, fast_sincos=True)
+        count_w = rl.bank_flops(ledger, N, P_w, warp(iters), warp(ls), fast_sincos=True)
+        secs, nbytes = ms / 1e3, B * bytes_per
+        rep = rl.roofline_report(count, secs, peaks, hbm_bytes=nbytes)
+        util_instr = rl.roofline_report(count, secs, peaks_instr)["vpu_model_utilization"]
+        b_ms, b_by = bound_ms(count.total_flops, nbytes)
+        share = b_ms / ms
+        bounds[name] = (b_ms, b_by, share)
+        warp_work = count_w.total_flops / count.total_flops
+        trips = float(np.max(rl.solver_loop_trips(N, warp(iters), warp(ls), P_w)))
+        line = (
+            f"roofline {name}: {count.total_flops / B:,.0f} FLOP/solve, {rep['achieved_gflops']:.1f} "
+            f"GFLOP/s achieved; bound {b_ms:.4f} ms ({b_by}; FLOP {count.total_flops / FP32_FLOPS * 1e3:.4f} "
+            f"ms, bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), share of bound {share:.4f}; "
+            f"vpu_model_utilization {rep['vpu_model_utilization']:.4f} (peak-rate model), "
+            f"{util_instr:.4f} (arith one instruction per op); divergence: warp-level work "
+            f"{warp_work:.4f}x the exact work, {1 - 1 / warp_work:.4f} of the time if issue-latency bound "
+            f"(estimate); loop overhead {trips * overhead / secs:.4f} of the time ({trips:.0f} trips, "
+            f"slowest warp)"
+        )
+        if ledger is rl.point_stab_solve_flops:
+            psec = rl.phase_model_seconds(rl.bank_phase_flops(N, P, iters, ls, fast_sincos=True), peaks)
+            total = sum(psec.values())
+            line += "; phases " + ", ".join(f"{k} {v / total:.3f}" for k, v in psec.items())
+        print(f"{line} -- {card}", flush=True)
+        if share > MAX_SHARE or rep["vpu_model_utilization"] > MAX_SHARE:
+            raise AssertionError(f"{name}: a share of a bound above {MAX_SHARE}")
+
+    # K3 against its plain version: four op classes at both of the path's
+    # geometries; one step on inputs spread over each map's domain (where a
+    # faster, less exact instruction would show), and chains of 64x16 and
+    # 1024x1 steps, both trip-loop shapes, on inputs inside every map's basin
+    rng3 = np.random.default_rng(2)
+    one_step = {
+        "fma": lambda n: rng3.uniform(0.05, 0.99, n),  # x * a + b exact in float64 below 1
+        "exp": lambda n: rng3.uniform(-80.0, 80.0, n),
+        "log": lambda n: np.exp(rng3.uniform(-80.0, 80.0, n)),
+        "sincos": lambda n: rng3.uniform(-1000.0, 1000.0, n),
+    }
+    err3, bad3 = 0.0, []
+    for rows, cols, block in CHAIN_GEOMETRIES:
+        x_chain = tens(rng3.uniform(0.2, 0.99, size=(rows, cols)))
+        for op in rl.CHAIN_OPS:
+            x_step = tens(one_step[op](rows * cols).reshape(rows, cols))
+            ulps = []
+            for x, shape in ((x_step, (1, 1)), (x_chain, (64, 16)), (x_chain, (1024, 1))):
+                got, ref = k3(x, op, *shape, block), rl.chain(x, op, *shape)
+                if not bool(torch.isfinite(ref).all()):
+                    raise AssertionError(f"chain {op}: non-finite reference")
+                ulps.append(int(rl.ulp_distance(got, ref).max()))
+                err3 = max(err3, float((got - ref).abs().max()))
+            print(
+                f"K3 {op} ({rows}x{cols}, block {block}) vs chain: max ulp apart {ulps} at 1x1, 64x16, "
+                f"1024x1 steps (band {CHAIN_MAX_ULP})"
+            )
+            if max(ulps) > CHAIN_MAX_ULP:
+                bad3.append(f"{op} {rows}x{cols}")
+    if bad3:
+        raise AssertionError(f"K3 outside its band against chain: {bad3}")
+    # K3's time at the peaks' geometry, a chain long enough that the launch
+    # is lost in it; the plain version at the short chain only
+    xp = tens(rng3.uniform(0.2, 0.99, size=(rl.PEAK_ROWS, rl.PEAK_COLS)))
+    steps3 = 65536  # ~10 ms a call
+    ms3, ms3_short = cuda_ms(k3, xp, "fma", steps3, 16), cuda_ms(k3, xp, "fma", 64, 16)
+    plain3 = cuda_ms(rl.chain, xp, "fma", 64, 16, reps=3)
+    b3 = bound_ms(2.0 * xp.numel() * steps3 * 16, 2 * 4.0 * xp.numel())
+    print(
+        f"timing K3 fma {rl.PEAK_ROWS}x{rl.PEAK_COLS}, block {rl.CHAIN_BLOCK}: {steps3}x16 steps kernel "
+        f"{ms3:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]}), share of bound {b3[0] / ms3:.4f}; 64x16 steps "
+        f"kernel {ms3_short:.4f} ms, plain {plain3:.1f} ms -- {card}"
+    )
+    if b3[0] / ms3 > MAX_SHARE:
+        raise AssertionError("K3 faster than its bound")
+
+    # the card through the port's profiler hook: K1's device time
+    with profile_trace(str(Path(__file__).resolve().parent / "build" / "trace"), device=dev) as prof:
+        k1(th_main, U0)
+    dev_us = sum(
+        getattr(e, "device_time_total", 0) for e in prof.key_averages() if "point_stab_kernel" in e.key
+    )
+    print(f"profile_trace: K1 headline kernel {dev_us / 1e3:.3f} ms of device time, trace in build/trace")
+    if dev_us <= 0:
+        raise AssertionError("profile_trace saw no device time for K1")
 
     kernels = [
         {
@@ -293,6 +505,9 @@ def main() -> int:
             "max_abs_err": err1,
             "ms": times["K1"][0],
             "plain_ms": times["K1"][1],
+            "bound_ms": bounds["K1 headline"][0],
+            "bound_by": bounds["K1 headline"][1],
+            "library_ms": None,  # no one PyTorch call solves a bank
         },
         {
             "name": "K2 tracking bank solve",
@@ -303,6 +518,23 @@ def main() -> int:
             "max_abs_err": err2,
             "ms": times["K2"][0],
             "plain_ms": times["K2"][1],
+            "bound_ms": bounds["K2 tracking"][0],
+            "bound_by": bounds["K2 tracking"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "K3 op chains (roofline peaks)",
+            "route": "cuda",
+            "source": "ros2_mpc_tpu_torch/csrc/chain.cu",
+            "replaces": "ros2_mpc_tpu/utils/roofline.py:298",
+            "launches": launches_rl["K3"],
+            "max_abs_err": err3,
+            "ms": ms3,  # fma at the peaks' geometry, 65536x16 steps
+            "plain_ms": plain3,  # fma at the peaks' geometry, 64x16 steps
+            "bound_ms": b3[0],
+            "bound_by": b3[1],
+            "library_ms": None,  # no one PyTorch call runs a dependency chain
+            "fma_tflops": peaks["fma_flops_per_s"] / 1e12,
         },
     ]
     print(json.dumps({"kernels": kernels}))

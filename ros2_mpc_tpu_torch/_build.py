@@ -43,6 +43,8 @@ _SIGNATURES = {
     "mpc_point_stab_launch": [_P] * 16 + _SCHEDULE + [_I, _I, _P],  # fast, block, stream
     # x0 xref uref w obs u0 mu stage first | 9 outputs and scratch
     "mpc_tracking_launch": [_P] * 18 + _SCHEDULE + [_I, _I, _I, _P],  # fast, wrap, block, stream
+    # x out n n_steps op unroll block stream
+    "mpc_chain_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
     "mpc_point_stab_info": [_I, _P],
     "mpc_tracking_info": [_I, _P],
     "mpc_error_string": [_I],

@@ -12,12 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .solver.ilqr import Solution
 
 
-def theta_from_numpy(thetas: dict, device="cpu") -> dict:
+def theta_from_numpy(thetas: dict, device=None) -> dict:
     """``{name: array}`` (NumPy or anything ``np.asarray`` takes, e.g. a jax
-    array) -> ``{name: float32 tensor on device}``."""
+    array) -> ``{name: float32 tensor on device}``; ``device=None`` is the
+    card (raises without one)."""
+    device = resolve_device(device)
     return {
         k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
         for k, v in thetas.items()

@@ -3,7 +3,9 @@
 Port of :mod:`ros2_mpc_tpu.solver.problems`: live point stabilization, live
 trajectory tracking and the legacy point stabilization, each an
 :class:`~ros2_mpc_tpu_torch.solver.ilqr.OCP` template plus a theta builder
-that returns a dict of float32 tensors on the problem's ``device``.
+that returns a dict of float32 tensors on the problem's ``device``: the card
+unless the caller passes another (``device=None`` is ``torch.device("cuda")``
+and raises without one; the CPU only as ``device="cpu"``).
 
 The reference's behavioural quirks are reproduced under
 ``reference_parity=True`` (the default) and corrected otherwise, exactly as
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import Params
+from ..device import resolve_device
 from ..models import unicycle
 from ..ops import costs
 from ..ops.integrators import make_step
@@ -65,7 +68,7 @@ def make_point_stabilization(
     reference_parity: bool = True,
     settings: Optional[SolverSettings] = None,
     horizon: Optional[int] = None,
-    device="cpu",
+    device=None,
 ) -> Problem:
     """Live point-stabilization NMPC.
 
@@ -74,6 +77,7 @@ def make_point_stabilization(
     ``inflation_radius``, ``obstacle_weight`` (0.0 under parity — quirk #1).
     """
     N = horizon if horizon is not None else params.N
+    device = resolve_device(device)
     F = make_step(unicycle.f, "rk4", params.dt)  # quirk #3: RK4 here
 
     def stage_cost(x, u, k, theta):
@@ -135,7 +139,7 @@ def make_tracking(
     settings: Optional[SolverSettings] = None,
     horizon: Optional[int] = None,
     terminal_weight=(0.0, 0.0, 0.0),
-    device="cpu",
+    device=None,
 ) -> Problem:
     """Live trajectory-tracking NMPC.
 
@@ -149,6 +153,7 @@ def make_tracking(
     tracking error to (-pi, pi] (``OCP.meta`` carries ``"wrap_yaw"``).
     """
     N = horizon if horizon is not None else params.N
+    device = resolve_device(device)
     F = make_step(unicycle.f, "euler", params.dt)  # quirk #3: Euler here
     obstacle_fn = costs.barrier_obstacle_cost if reference_parity else costs.gaussian_obstacle_cost
     wrap_yaw = not reference_parity
@@ -234,7 +239,7 @@ def make_legacy_point_stabilization(
     *,
     settings: Optional[SolverSettings] = None,
     horizon: Optional[int] = None,
-    device="cpu",
+    device=None,
 ) -> Problem:
     """Legacy standalone point-stabilization NMPC — the only reference
     variant whose (inverse-square barrier) obstacle cost is live, with
@@ -242,6 +247,7 @@ def make_legacy_point_stabilization(
     The obstacle sum covers states k = 0..N, so stage N is the terminal
     cost."""
     N = horizon if horizon is not None else params.N
+    device = resolve_device(device)
     F = make_step(unicycle.f, "rk4", params.dt)
 
     def obstacle_term(x, theta):

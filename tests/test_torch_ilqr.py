@@ -17,11 +17,13 @@ import pytest
 import torch
 
 from ros2_mpc_tpu import solver as js
-from ros2_mpc_tpu.config import Params
+from ros2_mpc_tpu.config import Params as JParams
 from ros2_mpc_tpu_torch import solver as ts
+from ros2_mpc_tpu_torch.config import Params as TParams
 from ros2_mpc_tpu_torch.convert import solution_to_numpy, theta_from_numpy
 
-PARAMS = Params()
+PARAMS = JParams()  # the JAX package's; the port builds from its own T_PARAMS
+T_PARAMS = TParams()
 N = 10
 B = 8
 J_FAST = js.SolverSettings(barrier_stages=4, iters_per_stage=3, n_alphas=6)
@@ -59,35 +61,40 @@ def _tracking_inputs(seed):
 
 CASES = {
     "point_parity": (
-        lambda m: m.make_point_stabilization(PARAMS, horizon=N, settings=_fast(m)),
+        lambda m: m.make_point_stabilization(_params(m), horizon=N, **_opts(m)),
         lambda: _point_inputs(0, obstacles=False),
         INERT,
     ),
     "point_corrected_obstacles": (
         lambda m: m.make_point_stabilization(
-            PARAMS, horizon=N, settings=_fast(m), reference_parity=False
+            _params(m), horizon=N, reference_parity=False, **_opts(m)
         ),
         lambda: _point_inputs(1, obstacles=True),
         LIVE,
     ),
     "tracking_corrected_wrap_terminal": (
         lambda m: m.make_tracking(
-            PARAMS, horizon=N, settings=_fast(m), reference_parity=False,
-            terminal_weight=(2.0, 2.0, 1.0),
+            _params(m), horizon=N, reference_parity=False,
+            terminal_weight=(2.0, 2.0, 1.0), **_opts(m),
         ),
         lambda: _tracking_inputs(5),
         LIVE,
     ),
     "legacy": (
-        lambda m: m.make_legacy_point_stabilization(PARAMS, horizon=N, settings=_fast(m)),
+        lambda m: m.make_legacy_point_stabilization(_params(m), horizon=N, **_opts(m)),
         lambda: _point_inputs(2, obstacles=False),
         LIVE,
     ),
 }  # fmt: skip
 
 
-def _fast(mod):
-    return J_FAST if mod is js else T_FAST
+def _params(mod):
+    return PARAMS if mod is js else T_PARAMS
+
+
+def _opts(mod):
+    # the port runs on the card unless told otherwise: these tests name the CPU
+    return {"settings": J_FAST} if mod is js else {"settings": T_FAST, "device": "cpu"}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -97,7 +104,7 @@ def test_make_solver_matches_jax(case):
     args = inputs()
     jthetas = jax.vmap(jprob.make_theta)(*(jnp.asarray(a) for a in args))
     ref = jax.jit(jax.vmap(jprob.solve))(jthetas, jnp.zeros((B, N, 2)))
-    got = torch.func.vmap(tprob.solve)(theta_from_numpy(jthetas), torch.zeros(B, N, 2))
+    got = torch.func.vmap(tprob.solve)(theta_from_numpy(jthetas, "cpu"), torch.zeros(B, N, 2))
     got = solution_to_numpy(got)
     np.testing.assert_allclose(got.U, np.asarray(ref.U), atol=u_atol)
     np.testing.assert_allclose(got.cost, np.asarray(ref.cost), rtol=c_rtol)
@@ -144,6 +151,6 @@ def test_settings_presets_match_jax():
 
 
 def test_horizon_parallel_is_not_ported_yet():
-    prob = ts.make_point_stabilization(PARAMS, horizon=N)
+    prob = ts.make_point_stabilization(T_PARAMS, horizon=N, device="cpu")
     with pytest.raises(NotImplementedError):
         ts.make_solver(prob.ocp, ts.SolverSettings(horizon_parallel=True))

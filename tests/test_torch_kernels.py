@@ -17,17 +17,19 @@ import pytest
 import torch
 
 from ros2_mpc_tpu import solver as js
-from ros2_mpc_tpu.config import Params
+from ros2_mpc_tpu.config import Params as JParams
 from ros2_mpc_tpu.solver.pallas_kernel import (
     make_pallas_point_stab_solver,
     make_pallas_tracking_solver,
 )
 from ros2_mpc_tpu_torch import _build
 from ros2_mpc_tpu_torch import solver as ts
+from ros2_mpc_tpu_torch.config import Params as TParams
 from ros2_mpc_tpu_torch.convert import solution_to_numpy, theta_from_numpy
 from ros2_mpc_tpu_torch.solver import cuda_kernel as ck
 
-PARAMS = Params()
+PARAMS = JParams()
+T_PARAMS = TParams()
 N = 10
 B = 16
 J_FAST = js.SolverSettings(barrier_stages=4, iters_per_stage=3, n_alphas=6)
@@ -84,9 +86,9 @@ def test_point_stab_plain_matches_pallas(bank):
     ref = make_pallas_point_stab_solver(jprob.ocp, J_FAST, interpret=True, tile_s=2, tile_l=8)(
         thetas, jnp.zeros((B, N, 2))
     )
-    tprob = ts.make_point_stabilization(PARAMS, horizon=N, settings=T_FAST, reference_parity=parity)
+    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, reference_parity=parity, device="cpu")
     solver = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST)
-    got = _assert_band(solver(theta_from_numpy(thetas), torch.zeros(B, N, 2)), ref, band, X=bank == "inert")
+    got = _assert_band(solver(theta_from_numpy(thetas, "cpu"), torch.zeros(B, N, 2)), ref, band, X=bank == "inert")
     assert got.n_iters.dtype == np.int32 and got.U.shape == (B, N, 2)
     assert solver.launches == 0  # CPU tensors take the plain version
 
@@ -102,7 +104,7 @@ def _tracking_bank(seed, yaw_ref, terminal_weight):
     oy[:, 0] = rng.uniform(-0.15, 0.15, size=B)
     kw = dict(horizon=N, reference_parity=False, terminal_weight=terminal_weight)
     jprob = js.make_tracking(PARAMS, settings=J_FAST, **kw)
-    tprob = ts.make_tracking(PARAMS, settings=T_FAST, **kw)
+    tprob = ts.make_tracking(T_PARAMS, settings=T_FAST, device="cpu", **kw)
     thetas = jax.vmap(jprob.make_theta)(*(jnp.asarray(a) for a in (x0, x_ref, u_ref, ox, oy)))
     return jprob, tprob, thetas
 
@@ -119,9 +121,9 @@ def test_tracking_plain_matches_pallas(seed, yaw_ref, terminal_weight):
     )
     solver = ck.make_cuda_tracking_solver(tprob.ocp, T_FAST)
     assert solver.cfg.wrap_yaw  # read from OCP.meta in corrected mode
-    _assert_band(solver(theta_from_numpy(thetas), torch.zeros(B, N, 2)), ref, (5e-4, 1e-3))
+    _assert_band(solver(theta_from_numpy(thetas, "cpu"), torch.zeros(B, N, 2)), ref, (5e-4, 1e-3))
     # a theta without terminal_weight solves the zero-weight problem
-    th = theta_from_numpy(thetas)
+    th = theta_from_numpy(thetas, "cpu")
     th0 = {k: v for k, v in th.items() if k != "terminal_weight"}
     zero = dict(th, terminal_weight=torch.zeros(B, 3))
     np.testing.assert_array_equal(solver(th0, torch.zeros(B, N, 2)).U.numpy(), solver(zero, torch.zeros(B, N, 2)).U.numpy())
@@ -137,8 +139,8 @@ def test_fast_sincos_accuracy():
 
 def test_fast_and_stock_sincos_agree_in_the_solver():
     _, thetas = _point_bank(9, True, None)
-    tprob = ts.make_point_stabilization(PARAMS, horizon=N, settings=T_FAST)
-    th, U0 = theta_from_numpy(thetas), torch.zeros(B, N, 2)
+    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, device="cpu")
+    th, U0 = theta_from_numpy(thetas, "cpu"), torch.zeros(B, N, 2)
     fast = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST, fast_sincos=True)(th, U0)
     stock = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST, fast_sincos=False)(th, U0)
     np.testing.assert_allclose(fast.U.numpy(), stock.U.numpy(), atol=5e-4)
@@ -147,9 +149,9 @@ def test_fast_and_stock_sincos_agree_in_the_solver():
 
 def test_counters_count_executed_work():
     _, thetas = _point_bank(1, False, [(0, (0.3, 0.7, -0.2, 0.2))])
-    tprob = ts.make_point_stabilization(PARAMS, horizon=N, settings=T_FAST, reference_parity=False)
+    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, reference_parity=False, device="cpu")
     solver = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST, with_counters=True)
-    sol, counters = solver(theta_from_numpy(thetas), torch.zeros(B, N, 2))
+    sol, counters = solver(theta_from_numpy(thetas, "cpu"), torch.zeros(B, N, 2))
     iters, ls = counters["iters"], counters["ls_rollouts"]
     assert iters.dtype == torch.int32 and iters.shape == (B,)
     assert bool(((iters > 0) & (iters <= T_FAST.total_iters)).all())
@@ -162,18 +164,18 @@ def test_stage_exit_is_per_scenario():
     """A loose stage tolerance lets converged scenarios leave their stages
     early while others keep iterating: n_iters differs across the bank."""
     _, thetas = _point_bank(0, True, None)
-    tprob = ts.make_point_stabilization(PARAMS, horizon=N, settings=T_FAST)
+    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, device="cpu")
     sol = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST, stage_tol=1e-3)(
-        theta_from_numpy(thetas), torch.zeros(B, N, 2)
+        theta_from_numpy(thetas, "cpu"), torch.zeros(B, N, 2)
     )
     assert int(sol.n_iters.min()) < int(sol.n_iters.max()) <= T_FAST.total_iters
 
 
 def test_single_scenario_matches_bank_row():
     _, thetas = _point_bank(1, False, [(0, (0.3, 0.7, -0.2, 0.2))])
-    tprob = ts.make_point_stabilization(PARAMS, horizon=N, settings=T_FAST, reference_parity=False)
+    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, reference_parity=False, device="cpu")
     solver = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST)
-    th = theta_from_numpy(thetas)
+    th = theta_from_numpy(thetas, "cpu")
     bank = solver(th, torch.zeros(B, N, 2))
     one = ck.single_scenario(solver)({k: v[3] for k, v in th.items()}, torch.zeros(N, 2))
     assert one.U.shape == (N, 2) and one.cost.shape == ()
@@ -181,7 +183,7 @@ def test_single_scenario_matches_bank_row():
 
 
 def test_wrapper_rejects_bad_inputs_and_devices():
-    tprob = ts.make_point_stabilization(PARAMS, horizon=N, settings=T_FAST)
+    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, device="cpu")
     solver = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST)
     th = torch.func.vmap(tprob.make_theta)(torch.zeros(2, 3), torch.ones(2, 3))
     with pytest.raises(ValueError):
@@ -222,7 +224,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     """K1 and K2 launched on the card against their plain versions on the
     same CUDA tensors: built with -fmad=false, they agree bit for bit."""
     _, thetas = _point_bank(1, False, [(0, (0.3, 0.7, -0.2, 0.2))])
-    tprob = ts.make_point_stabilization(PARAMS, horizon=N, settings=T_FAST, reference_parity=False)
+    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, reference_parity=False, device="cpu")
     k1 = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST)
     th, U0 = theta_from_numpy(thetas, cuda_device), torch.zeros(B, N, 2, device=cuda_device)
     torch.testing.assert_close(k1(th, U0).U, k1.plain(th, U0).U, atol=0.0, rtol=0.0)
