@@ -8,7 +8,8 @@ runs the main path through the entry points a user calls:
 * the headline bank: 4096 unicycle point-stabilization NMPC solves at
   horizon N=20 (``Params()``, default ``SolverSettings``, reference parity),
   seeded with ``np.random.default_rng(0)`` exactly as ``bench.py`` builds
-  it, through K1 (``make_cuda_point_stab_solver``);
+  it, through K1 (``make_cuda_point_stab_solver``; one scenario on a group
+  of ``K1_GROUP`` lanes);
 * the obstacle-active bank (corrected mode, 3 live points near each
   start-goal line, ``bench.py``'s cluster recipe) through K1;
 * a 4096 tracking bank (corrected mode, terminal weight (10, 10, 1),
@@ -17,18 +18,22 @@ runs the main path through the entry points a user calls:
   (``make_packed_point_stab``) with K1 at B=1 as its engine.
 
 Each kernel is held against its plain PyTorch version on the same inputs on
-the card, and K1 against the port's algorithmic reference (``make_solver``,
-on the CPU) at a small size. The kernels' launch counters are zeroed just
+the card: bit for bit (``torch.equal`` on U, X, cost, KKT residual and
+n_iters) on every bank and tick, with the deviation bands printed beside;
+and K1 against the port's algorithmic reference (``make_solver``, on the
+CPU) at a small size. The kernels' launch counters are zeroed just
 before the main path and read just after. Then kernel and plain version are
 timed with CUDA events.
 
 Then the roofline path (``ros2_mpc_tpu_torch.utils.roofline``), its own
 counters zeroed just before it and read just after: K3 (``csrc/chain.cu``)
-measures the card's per-op-class peaks and the loop overhead at K1's
-geometry, K1 and K2 rerun the banks with their executed-work counters, and
-the ledgers turn those into FLOP per solve, achieved GFLOP/s, the bound
-(the larger of FLOP over 67 TFLOP/s and bytes over 3.35 TB/s, the H100's
-published FP32 and HBM rates) and each bank's share of it, with the phase,
+measures the card's per-op-class peaks and the loop overhead at K2's
+geometry, K1 and K2 rerun the banks with their executed-work counters
+(``iters`` and ``ls_rollouts``, which must equal the plain versions' element
+by element), and the ledgers turn those into FLOP per solve, achieved
+GFLOP/s, the bound (the larger of FLOP over 67 TFLOP/s and bytes over
+3.35 TB/s, the H100's published FP32 and HBM rates) and each bank's share
+of it, with the phase shares, and for K2 (one thread per scenario) the
 warp-divergence and loop-overhead shares. K3 is held against its plain
 version ``chain`` bit for bit, for all four op classes at both of the
 path's geometries, and its SASS is read back (``cuobjdump``) to show the
@@ -49,6 +54,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -121,7 +127,8 @@ def tracking_bank(rng, B, N, dt, n_obs):
 
 
 def compare(name, sol, ref, band):
-    """Hold a kernel Solution against its plain version; raise outside band."""
+    """Hold a kernel Solution against its plain version: raise unless U, X,
+    cost, KKT residual and n_iters are bit-equal, or outside the band."""
     import torch
 
     u_atol, c_rtol = band
@@ -141,6 +148,11 @@ def compare(name, sol, ref, band):
         f"{float(sol.n_iters.float().mean()):.3f} (plain {float(ref.n_iters.float().mean()):.3f})",
         flush=True,
     )
+    fields = ("U", "X", "cost", "kkt_residual", "n_iters")
+    unequal = [f for f in fields if not torch.equal(getattr(sol, f), getattr(ref, f))]
+    print(f"{name}: bit-equal to the plain version {'yes' if not unequal else 'no: ' + ', '.join(unequal)}")
+    if unequal:
+        raise AssertionError(f"{name}: {unequal} differ from the plain version")
     if float(out.float().mean()) > MAX_OUT_FRAC:
         raise AssertionError(f"{name}: {int(out.sum())} scenarios outside the band")
     if abs(conv - conv_ref) > MAX_CONV_GAP:
@@ -201,6 +213,65 @@ def cuda_ms(fn, *args, reps=5):
     return float(np.median(times))
 
 
+def tick_latency(solve_tick, pack, U_warm, obs_x, obs_y, goal, warm=10, n=50):
+    """Host-clock latency (ms) of ``n`` packed warm ticks at B=1 after
+    ``warm`` more: pack, transfer, solve, and reading the first command
+    back, with the robot following the model from the origin."""
+    pose, times = np.zeros(3), []
+    for i in range(warm + n):
+        t0 = time.perf_counter()
+        sol, U_next = solve_tick(pack(pose, goal, obs_x, obs_y), U_warm)
+        sol.U[0].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+        U_warm, pose = U_next, sol.X[1].cpu().numpy()
+    return np.asarray(times[warm:])
+
+
+def main_path_inputs(dev):
+    """The main path's problems and inputs, all from seeded generators as
+    bench.py builds them: the headline, obstacle-active and tracking banks
+    (``prob``/``th_main``, ``prob_c``/``th_obs``, ``prob_t``/``th_trk``)
+    and the single-robot tick (``prob_tick``, its obstacles and goal)."""
+    import torch
+
+    from ros2_mpc_tpu_torch.config import Params
+    from ros2_mpc_tpu_torch.solver import SolverSettings, make_point_stabilization, make_tracking
+
+    params = Params()
+    n_obs = params.n_obstacle_points
+    tens = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    rng = np.random.default_rng(0)
+    x0, goal = headline_bank(rng, B)
+    obs_x, obs_y = obstacle_clusters(rng, x0, goal, n_obs)
+    trk = tracking_bank(np.random.default_rng(1), B, N, params.dt, n_obs)
+
+    prob = make_point_stabilization(params, horizon=N, device=dev)
+    prob_c = make_point_stabilization(params, horizon=N, reference_parity=False, device=dev)
+    prob_t = make_tracking(
+        params, horizon=N, reference_parity=False, terminal_weight=(10.0, 10.0, 1.0), device=dev
+    )
+    # the single-robot tick: corrected mode, realtime schedule, the
+    # follower's horizon, one live obstacle ahead of the robot
+    prob_tick = make_point_stabilization(
+        params, reference_parity=False, settings=SolverSettings.realtime(), device=dev
+    )
+    tick_obs_x, tick_obs_y = np.full(n_obs, 100.0), np.full(n_obs, 100.0)
+    tick_obs_x[0], tick_obs_y[0] = 0.6, 0.05
+    return SimpleNamespace(
+        params=params,
+        prob=prob,
+        prob_c=prob_c,
+        prob_t=prob_t,
+        th_main=torch.func.vmap(prob.make_theta)(tens(x0), tens(goal)),
+        th_obs=torch.func.vmap(prob_c.make_theta)(tens(x0), tens(goal), tens(obs_x), tens(obs_y)),
+        th_trk=torch.func.vmap(prob_t.make_theta)(*map(tens, trk)),
+        prob_tick=prob_tick,
+        tick_obs_x=tick_obs_x,
+        tick_obs_y=tick_obs_y,
+        tick_goal=np.array([1.0, 0.2, 0.3]),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -209,10 +280,10 @@ def main() -> int:
         return 2
 
     from ros2_mpc_tpu_torch import _build
-    from ros2_mpc_tpu_torch.config import Params
-    from ros2_mpc_tpu_torch.solver import SolverSettings, make_point_stabilization, make_tracking
+    from ros2_mpc_tpu_torch.solver import SolverSettings, make_point_stabilization
     from ros2_mpc_tpu_torch.solver.cuda_kernel import (
         BLOCK,
+        k1_geometry,
         make_cuda_point_stab_solver,
         make_cuda_tracking_solver,
         single_scenario,
@@ -249,39 +320,30 @@ def main() -> int:
     if u1.count("FFMA") != 1 or not u1 or u1[-1] != "BRA" or u16.count("FFMA") != 16:
         raise AssertionError(f"K3's fma trip loop is not one FFMA and a branch: {u1} / {u16}")
 
-    params = Params()
+    inp = main_path_inputs(dev)
+    params, prob, prob_c, prob_t, prob_tick = inp.params, inp.prob, inp.prob_c, inp.prob_t, inp.prob_tick
+    th_main, th_obs, th_trk = inp.th_main, inp.th_obs, inp.th_trk
+    tick_obs_x, tick_obs_y, tick_goal = inp.tick_obs_x, inp.tick_obs_y, inp.tick_goal
     n_obs = params.n_obstacle_points
-    f32 = torch.float32
-    tens = lambda a: torch.as_tensor(a, dtype=f32, device=dev)  # noqa: E731
-
-    # inputs of the main path, all from one seeded generator as bench.py
-    rng = np.random.default_rng(0)
-    x0, goal = headline_bank(rng, B)
-    obs_x, obs_y = obstacle_clusters(rng, x0, goal, n_obs)
-    trk = tracking_bank(np.random.default_rng(1), B, N, params.dt, n_obs)
-
-    prob = make_point_stabilization(params, horizon=N, device=dev)
-    prob_c = make_point_stabilization(params, horizon=N, reference_parity=False, device=dev)
-    prob_t = make_tracking(
-        params, horizon=N, reference_parity=False, terminal_weight=(10.0, 10.0, 1.0), device=dev
-    )
-    th_main = torch.func.vmap(prob.make_theta)(tens(x0), tens(goal))
-    th_obs = torch.func.vmap(prob_c.make_theta)(tens(x0), tens(goal), tens(obs_x), tens(obs_y))
-    th_trk = torch.func.vmap(prob_t.make_theta)(*map(tens, trk))
-    U0 = torch.zeros(B, N, 2, dtype=f32, device=dev)
+    tens = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    U0 = torch.zeros(B, N, 2, dtype=torch.float32, device=dev)
 
     k1 = make_cuda_point_stab_solver(prob.ocp, prob.settings)
     k2 = make_cuda_tracking_solver(prob_t.ocp, prob_t.settings)
-    # the single-robot tick: corrected mode, realtime schedule, the
-    # follower's horizon, K1 at B=1 as the engine
-    prob_tick = make_point_stabilization(
-        params, reference_parity=False, settings=SolverSettings.realtime(), device=dev
-    )
+    # the tick's engine: K1 at B=1
     k1_tick = make_cuda_point_stab_solver(prob_tick.ocp, prob_tick.settings)
     solve_tick, pack = make_packed_point_stab(prob_tick, params, solve_fn=single_scenario(k1_tick))
-    for name, s in (("K1", k1), ("K2", k2)):
-        info = s.kernel_info()
-        print(f"{name} at {BLOCK} threads/block: {info}", flush=True)
+    # K1: G lanes a scenario; group, scenarios and threads per block,
+    # blocks, shared memory per block, registers, local bytes, resident
+    # blocks per SM, ptxas's spill stores. The geometry is the kernel's
+    # own; the wrapper's pre-build mirror of it must agree.
+    for name, s, Bk in (("K1 headline", k1, B), ("K1 tick", k1_tick, 1)):
+        info = s.kernel_info(Bk)
+        print(f"{name} (B={Bk}, N={s.cfg.N}): {info}", flush=True)
+        mirror = k1_geometry(Bk, s.cfg.N, s.cfg.n_alphas)
+        if {k: info[k] for k in mirror} != mirror:
+            raise AssertionError(f"{name}: k1_geometry {mirror} is not the kernel's geometry")
+    print(f"K2 (B={B}, N={N}, {BLOCK} threads/block): {k2.kernel_info(B)}", flush=True)
 
     # ---- main path, with the launch counters zeroed just before
     for s in (k1, k2, k1_tick):
@@ -289,9 +351,7 @@ def main() -> int:
     sol_main = k1(th_main, U0)
     sol_obs = k1(th_obs, U0)
     sol_trk = k2(th_trk, U0)
-    tick_obs_x, tick_obs_y = np.full(n_obs, 100.0), np.full(n_obs, 100.0)
-    tick_obs_x[0], tick_obs_y[0] = 0.6, 0.05
-    pose, tick_goal = np.zeros(3), np.array([1.0, 0.2, 0.3])
+    pose = np.zeros(3)
     U_warm = prob_tick.default_u0
     ticks = []
     for _ in range(5):
@@ -307,22 +367,39 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
-    # ---- 2-5. the same inputs through the plain versions
-    err1 = compare(f"K1 headline bank (parity, B={B}, N={N})", sol_main, k1.plain(th_main, U0), INERT)
-    compare("K1 obstacle-active bank (corrected)", sol_obs, k1.plain(th_obs, U0), LIVE)
-    err2 = compare("K2 tracking bank (corrected, terminal weight)", sol_trk, k2.plain(th_trk, U0), LIVE)
+    # ---- 2-5. the same inputs through the plain versions (with their
+    # counters, which the counted reruns of the roofline path must match)
+    k1_cnt = make_cuda_point_stab_solver(prob.ocp, prob.settings, with_counters=True)
+    k2_cnt = make_cuda_tracking_solver(prob_t.ocp, prob_t.settings, with_counters=True)
+    plain = {
+        "K1 headline": k1_cnt.plain(th_main, U0),
+        "K1 obstacle-active": k1_cnt.plain(th_obs, U0),
+        "K2 tracking": k2_cnt.plain(th_trk, U0),
+    }
+    err1 = compare(f"K1 headline bank (parity, B={B}, N={N})", sol_main, plain["K1 headline"][0], INERT)
+    compare("K1 obstacle-active bank (corrected)", sol_obs, plain["K1 obstacle-active"][0], LIVE)
+    err2 = compare("K2 tracking bank (corrected, terminal weight)", sol_trk, plain["K2 tracking"][0], LIVE)
     plain_tick, _ = make_packed_point_stab(prob_tick, params, solve_fn=single_scenario(k1_tick.plain))
-    tick_err = 0.0
-    for vec, U_in, sol in ticks:
+    tick_err, tick_unequal = 0.0, []
+    for i, (vec, U_in, sol) in enumerate(ticks):
         ref, _ = plain_tick(vec, U_in)
         tick_err = max(tick_err, float((sol.U - ref.U).abs().max()))
+        fields = ("U", "X", "cost", "kkt_residual", "n_iters")
+        tick_unequal += [f"tick {i} {f}" for f in fields if not torch.equal(getattr(sol, f), getattr(ref, f))]
     final = ticks[-1][2]
-    if tick_err > LIVE[0] or not bool(torch.isfinite(final.U).all()):
-        raise AssertionError(f"tick path: max|dU| {tick_err}")
     print(
         f"tick path (5 warm ticks, B=1, N={prob_tick.ocp.horizon}, realtime): max|dU| vs plain "
-        f"{tick_err:.3e}, last tick converged {bool(final.converged)}, "
-        f"pose after 5 ticks {np.round(pose, 4).tolist()}",
+        f"{tick_err:.3e}, bit-equal to the plain version {'yes' if not tick_unequal else tick_unequal}, "
+        f"last tick converged {bool(final.converged)}, pose after 5 ticks {np.round(pose, 4).tolist()}",
+        flush=True,
+    )
+    if tick_unequal or not bool(torch.isfinite(final.U).all()):
+        raise AssertionError(f"tick path: {tick_unequal or 'non-finite U'}")
+    lat = tick_latency(solve_tick, pack, prob_tick.default_u0, tick_obs_x, tick_obs_y, tick_goal)
+    print(
+        f"tick latency (K1 at B=1, N={prob_tick.ocp.horizon}, realtime; host clock, pack to first command, "
+        f"{lat.size} ticks after 10): p50 {np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms "
+        f"-- {card}",
         flush=True,
     )
     conv = float(sol_main.converged.float().mean())
@@ -358,8 +435,6 @@ def main() -> int:
 
     # ---- 7. the roofline path, with its launch counters zeroed just before
     k3 = rl.chain_kernel
-    k1_cnt = make_cuda_point_stab_solver(prob.ocp, prob.settings, with_counters=True)
-    k2_cnt = make_cuda_tracking_solver(prob_t.ocp, prob_t.settings, with_counters=True)
     for s in (k3, k1_cnt, k2_cnt):
         s.launches = 0
     t0 = time.perf_counter()
@@ -376,9 +451,15 @@ def main() -> int:
     for name, n in launches_rl.items():
         if n == 0:
             raise AssertionError(f"{name} was not launched on the roofline path")
-    for (name, (_, sol, _)), ref in zip(counted.items(), (sol_main, sol_obs, sol_trk)):
+    for (name, (_, sol, cnt)), ref in zip(counted.items(), (sol_main, sol_obs, sol_trk)):
         if not torch.equal(sol.U, ref.U):  # the counters change no arithmetic
             raise AssertionError(f"{name}: the counted solve differs from the main path's")
+        # the schedule's executed iterations and first-accept candidates,
+        # whatever the lanes ran speculatively
+        unequal = [k for k in ("iters", "ls_rollouts") if not torch.equal(cnt[k], plain[name][1][k])]
+        print(f"{name} counters: iters and ls_rollouts equal to the plain version's {unequal or 'yes'}")
+        if unequal:
+            raise AssertionError(f"{name}: counters {unequal} differ from the plain version's")
     print(
         f"K3 peaks ({rl.PEAK_ROWS}x{rl.PEAK_COLS}, block {rl.CHAIN_BLOCK}): "
         f"FMA {peaks['fma_flops_per_s'] / 1e12:.3f} TFLOP/s ({peaks['fma_flops_per_s'] / FP32_FLOPS:.3f} "
@@ -410,27 +491,34 @@ def main() -> int:
         ls = cnt["ls_rollouts"].cpu().numpy().astype(float)
         obs = [th[k].cpu().numpy() for k in ("obs_x", "obs_y", "obstacle_weight")]
         P = rl.computed_obstacle_points(*obs, tile_s=1, tile_l=1, chunk=1)
-        P_w = rl.computed_obstacle_points(*obs, tile_s=1, tile_l=32, chunk=1)
         count = rl.bank_flops(ledger, N, P, iters, ls, fast_sincos=True)
-        count_w = rl.bank_flops(ledger, N, P_w, warp(iters), warp(ls), fast_sincos=True)
         secs, nbytes = ms / 1e3, B * bytes_per
         rep = rl.roofline_report(count, secs, peaks, hbm_bytes=nbytes)
         util_instr = rl.roofline_report(count, secs, peaks_instr)["vpu_model_utilization"]
         b_ms, b_by = bound_ms(count.total_flops, nbytes)
         share = b_ms / ms
         bounds[name] = (b_ms, b_by, share)
-        warp_work = count_w.total_flops / count.total_flops
-        trips = float(np.max(rl.solver_loop_trips(N, warp(iters), warp(ls), P_w)))
         line = (
             f"roofline {name}: {count.total_flops / B:,.0f} FLOP/solve, {rep['achieved_gflops']:.1f} "
             f"GFLOP/s achieved; bound {b_ms:.4f} ms ({b_by}; FLOP {count.total_flops / FP32_FLOPS * 1e3:.4f} "
             f"ms, bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), share of bound {share:.4f}; "
             f"vpu_model_utilization {rep['vpu_model_utilization']:.4f} (peak-rate model), "
-            f"{util_instr:.4f} (arith one instruction per op); divergence: warp-level work "
-            f"{warp_work:.4f}x the exact work, {1 - 1 / warp_work:.4f} of the time if issue-latency bound "
-            f"(estimate); loop overhead {trips * overhead / secs:.4f} of the time ({trips:.0f} trips, "
-            f"slowest warp)"
+            f"{util_instr:.4f} (arith one instruction per op); "
         )
+        if ledger is rl.point_stab_solve_flops:
+            # K1's lanes run speculative candidates and redundant sweeps, so
+            # a recount of one thread per scenario says nothing about it
+            line += "divergence and loop overhead: not modelled for a lane group per scenario"
+        else:
+            P_w = rl.computed_obstacle_points(*obs, tile_s=1, tile_l=32, chunk=1)
+            count_w = rl.bank_flops(ledger, N, P_w, warp(iters), warp(ls), fast_sincos=True)
+            warp_work = count_w.total_flops / count.total_flops
+            trips = float(np.max(rl.solver_loop_trips(N, warp(iters), warp(ls), P_w)))
+            line += (
+                f"divergence: warp-level work {warp_work:.4f}x the exact work, {1 - 1 / warp_work:.4f} "
+                f"of the time if issue-latency bound (estimate); loop overhead "
+                f"{trips * overhead / secs:.4f} of the time ({trips:.0f} trips, slowest warp)"
+            )
         if ledger is rl.point_stab_solve_flops:
             psec = rl.phase_model_seconds(rl.bank_phase_flops(N, P, iters, ls, fast_sincos=True), peaks)
             total = sum(psec.values())

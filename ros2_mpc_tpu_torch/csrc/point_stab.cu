@@ -11,19 +11,23 @@
 // What bounds it on an H100: latency and occupancy on FP32 and SFU work
 // (sin/cos, exp, log, division), not bytes. One scenario's schedule is a
 // long chain of dependent scalar operations; the inputs are a few hundred
-// bytes per scenario and the scratch (303 floats at N=20) stays in L1/L2.
-// At the main path's B=4096, one thread per scenario gives 128 warps for
-// 132 SMs, so each SM sub-partition holds at most one warp and the
-// dependency latency is barely hidden.
+// bytes per scenario. With one thread per scenario, the main path's
+// B=4096 gave 128 warps for 132 SMs, and each iteration's chain held the
+// rollout, the derivatives of every stage and ~2-3 candidate rollouts of
+// the line search.
 //
-// What the design does about it: one thread runs one scenario end to end
-// in registers, with its own early exits (zero obstacle weight, the live
-// obstacle prefix, the converged barrier stage, the first accepted step),
-// so no scenario waits on a tile; structure-of-arrays planes keep every
-// load coalesced; the paired polynomial sin/cos replaces three libdevice
-// sincosf calls per RK4 step. Spreading a scenario over a warp (the
-// obstacle sum over lanes) or over the horizon is left for later work.
-#include "common.cuh"
+// What the design does about it: one scenario is a group of G lanes
+// (group_solve.cuh bank_solve_group). The per-stage derivatives and cost
+// terms run one stage per lane, the line-search candidates one step size
+// per lane, so an iteration's chain is the Riccati sweep and one candidate
+// rollout; the iterate, the gains and the candidates live in shared memory,
+// sized at launch from N and n_alphas. 4096 scenarios are 4096 * G / 32
+// warps. Each scenario keeps its own early exits and bank_solve's order of
+// operations, so K1 stays bit-equal to its plain version. The lanes per
+// scenario and the scenarios per block are compile-time constants fixed by
+// measurement (PERF.md): k1_sweep.py builds its own libraries with other
+// values through -DMPC_K1_GROUP and -DMPC_K1_SCENARIOS_PER_BLOCK.
+#include "group_solve.cuh"
 
 namespace mpc {
 
@@ -120,47 +124,106 @@ struct PointStabModel {
   __device__ Value terminal_value(float, float, float) const { return Value{}; }
 };
 
-__global__ void __launch_bounds__(128)
-    point_stab_kernel(const float* x0g, const float* w, const float* obs, int n_obs, SolveArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
+#ifndef MPC_K1_GROUP
+#define MPC_K1_GROUP 8
+#endif
+#ifndef MPC_K1_SCENARIOS_PER_BLOCK
+#define MPC_K1_SCENARIOS_PER_BLOCK 16
+#endif
+constexpr int kGroup = MPC_K1_GROUP;  // lanes a scenario
+constexpr int kScenariosPerBlock = MPC_K1_SCENARIOS_PER_BLOCK;
+static_assert(kScenariosPerBlock >= 1 && kGroup * kScenariosPerBlock <= 256,
+              "K1's blocks hold at most 256 threads");
+// the most dynamic shared memory a block may have on sm_90 (227 KB)
+constexpr int kMaxSmemBytes = 232448;
+
+// K1's launch for B scenarios at (N, n_alphas): fewer scenarios share a
+// block where B or the shared-memory budget asks for it.
+struct Geometry {
+  int scratch;     // floats of one scenario's scratch
+  int spb;         // scenarios a block, 0 where one scenario does not fit
+  int smem_bytes;  // dynamic shared memory a block
+};
+
+inline Geometry geometry(int B, int N, int n_alphas) {
+  Geometry g;
+  g.scratch = group_scratch_floats(N, n_alphas, kGroup);
+  const int fit = kMaxSmemBytes / (g.scratch * static_cast<int>(sizeof(float)));
+  g.spb = kScenariosPerBlock < B ? kScenariosPerBlock : B;
+  g.spb = g.spb < fit ? g.spb : fit;
+  g.smem_bytes = g.spb * g.scratch * static_cast<int>(sizeof(float));
+  return g;
+}
+
+// At most 256 threads a block, and enough resident blocks per SM for one
+// wave of the 4096-scenario bank (4096 * G / 32 warps on 132 SMs): this caps
+// the registers at 255 (G=8), 128 (G=16) or 64 (G=32) a thread.
+__global__ void __launch_bounds__(256, kGroup / 8)
+    point_stab_kernel(const float* x0g, const float* w, const float* obs, int n_obs, SolveArgs a,
+                      int scenarios_per_block, int scratch) {
+  extern __shared__ float smem[];
+  const int gi = threadIdx.x / kGroup;
+  const int b = blockIdx.x * scenarios_per_block + gi;
+  if (b >= a.B) return;  // the whole group leaves together
   const PointStabModel m(x0g, w, obs, n_obs, a, b);
-  bank_solve(m, a, b);
+  bank_solve_group<PointStabModel, kGroup>(m, a, b, smem + gi * scratch);
+}
+
+// Dynamic shared memory above 48 KB needs the kernel's opt-in.
+inline cudaError_t allow_smem(int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(point_stab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes);
 }
 
 }  // namespace mpc
 
 extern "C" {
 
-// Launch K1 on `stream` (one thread per scenario, `block` threads a block);
-// returns the cudaError_t of the launch.
+// Launch K1 on `stream` (one scenario on MPC_K1_GROUP lanes, shared memory
+// sized from N and n_alphas); returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue where one scenario does not fit in a block.
 int mpc_point_stab_launch(const float* x0g, const float* w, const float* obs, const float* u0,
                           const float* mu, const int* stage, const int* first, float* U, float* X,
-                          float* kff, float* kfb, float* Ubest, float* cost, float* kkt, int* iters,
-                          int* lsro, int B, int N, int n_obs, int n_iters, int n_alphas, float dt,
-                          float lo_v, float hi_v, float lo_w, float hi_w, float eps_v, float eps_w,
-                          float c1, float reg_init, float reg_min, float reg_max, float stage_tol,
-                          int fast_sincos, int block, void* stream) {
-  const mpc::SolveArgs a = mpc::solve_args(u0, mu, stage, first, U, X, kff, kfb, Ubest, cost, kkt,
-                                           iters, lsro, B, N, n_iters, n_alphas, fast_sincos, dt,
-                                           lo_v, hi_v, lo_w, hi_w, eps_v, eps_w, c1, reg_init,
-                                           reg_min, reg_max, stage_tol);
-  const int grid = (B + block - 1) / block;
-  mpc::point_stab_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(x0g, w, obs,
-                                                                              n_obs, a);
+                          float* cost, float* kkt, int* iters, int* lsro, int B, int N, int n_obs,
+                          int n_iters, int n_alphas, float dt, float lo_v, float hi_v, float lo_w,
+                          float hi_w, float eps_v, float eps_w, float c1, float reg_init,
+                          float reg_min, float reg_max, float stage_tol, int fast_sincos,
+                          void* stream) {
+  const mpc::Geometry g = mpc::geometry(B, N, n_alphas);
+  if (g.spb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = mpc::allow_smem(g.smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const mpc::SolveArgs a = mpc::solve_args(u0, mu, stage, first, U, X, nullptr, nullptr, nullptr,
+                                           cost, kkt, iters, lsro, B, N, n_iters, n_alphas,
+                                           fast_sincos, dt, lo_v, hi_v, lo_w, hi_w, eps_v, eps_w,
+                                           c1, reg_init, reg_min, reg_max, stage_tol);
+  const int grid = (B + g.spb - 1) / g.spb;
+  mpc::point_stab_kernel<<<grid, g.spb * mpc::kGroup, g.smem_bytes,
+                           static_cast<cudaStream_t>(stream)>>>(x0g, w, obs, n_obs, a, g.spb,
+                                                                g.scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1's registers, local memory bytes and resident blocks per SM at `block`
-// threads (out[0..2]); returns a cudaError_t.
-int mpc_point_stab_info(int block, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, mpc::point_stab_kernel);
+// K1's launch for B scenarios at (N, n_alphas) and what the card makes of
+// it, in out[0..5]: lanes a scenario, scenarios a block, dynamic shared
+// memory bytes a block, registers a thread, local memory bytes a thread,
+// resident blocks per SM. Returns a cudaError_t.
+int mpc_point_stab_info(int B, int N, int n_alphas, int* out) {
+  const mpc::Geometry g = mpc::geometry(B, N, n_alphas);
+  if (g.spb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = mpc::kGroup;
+  out[1] = g.spb;
+  out[2] = g.smem_bytes;
+  cudaError_t err = mpc::allow_smem(g.smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], mpc::point_stab_kernel, block, 0));
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, mpc::point_stab_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[5], mpc::point_stab_kernel, g.spb * mpc::kGroup, g.smem_bytes));
 }
 
 // Message of a cudaError_t returned by the entry points of both kernels.

@@ -4,10 +4,15 @@ the wrappers that choose between them.
 Port of :mod:`ros2_mpc_tpu.solver.pallas_kernel`. The TPU kernels run the
 complete interior-point iLQR (rollouts, analytic derivatives, Riccati sweep,
 Armijo line search, barrier continuation) per (8, 128)-scenario tile in
-VMEM. Here it is hand-written CUDA C++ for ``sm_90a``
-(``csrc/point_stab.cu`` and ``csrc/tracking.cu`` over the shared schedule in
-``csrc/common.cuh``): one thread per scenario, structure-of-arrays planes
-``(..., B)`` with the scenario index minor, any B >= 1.
+VMEM. Here it is hand-written CUDA C++ for ``sm_90a`` on structure-of-arrays
+planes ``(..., B)`` with the scenario index minor, any B >= 1:
+
+* K1 (``csrc/point_stab.cu``) runs one scenario on a group of
+  :data:`K1_GROUP` lanes (``csrc/group_solve.cuh``): per-stage derivatives
+  and line-search candidates across lanes, the iterate in shared memory
+  sized from N and n_alphas at launch (:func:`k1_geometry` mirrors it);
+* K2 (``csrc/tracking.cu``) runs one scenario on one thread
+  (``csrc/common.cuh``), :data:`BLOCK` threads a block.
 
 Beside each kernel is its plain PyTorch version, :func:`point_stab_bank_plain`
 and :func:`tracking_bank_plain`: batched code over ``(B,)`` planes that
@@ -40,8 +45,18 @@ import torch
 
 from .ilqr import OCP, Solution, SolverSettings
 
-# Threads per block: one scenario per thread (chosen by measurement, PERF.md).
+# K2's threads per block, one scenario per thread (chosen by measurement,
+# PERF.md); also the geometry of roofline.measure_loop_overhead.
 BLOCK = 64
+# K1's lanes per scenario and scenarios per block: compile-time constants of
+# csrc/point_stab.cu (MPC_K1_GROUP, MPC_K1_SCENARIOS_PER_BLOCK), chosen by
+# measurement (PERF.md). The kernel's entry point sizes its launch itself;
+# the wrapper mirrors it (k1_geometry) only to refuse a shape before any
+# build, and kernel_info reads the kernel's own geometry back.
+K1_GROUP = 8
+K1_SCENARIOS_PER_BLOCK = 16
+# The most dynamic shared memory one block may have on sm_90 (227 KB).
+SMEM_PER_BLOCK = 232_448
 
 _F32 = torch.float32
 
@@ -558,6 +573,38 @@ def tracking_bank_plain(cfg: BankConfig, x0, xref, uref, w, obs, u0):
 # ------------------------------------------------------------------ wrappers
 
 
+def k1_scratch_floats(N: int, n_alphas: int) -> int:
+    """Floats of one scenario's shared scratch in K1, as
+    ``csrc/group_solve.cuh group_scratch_floats``: X, U, kff, kfb, the stage
+    terms, and the larger of the per-stage records (17 floats a stage) and
+    the candidates' controls and states (5N for each of min(K1_GROUP,
+    n_alphas) lanes), made odd."""
+    slots = min(K1_GROUP, n_alphas)
+    return (3 * (N + 1) + 11 * N + max(17 * N, 5 * N * slots)) | 1
+
+
+def k1_geometry(B: int, N: int, n_alphas: int) -> dict:
+    """K1's launch for a bank of B scenarios, as ``csrc/point_stab.cu
+    geometry`` computes it: lanes per scenario, scenarios and threads per
+    block, blocks, and dynamic shared memory per block. Fewer scenarios
+    share a block where B or the 227 KB budget asks for it; raises
+    ValueError where one scenario does not fit."""
+    per = 4 * k1_scratch_floats(N, n_alphas)
+    spb = min(K1_SCENARIOS_PER_BLOCK, B, SMEM_PER_BLOCK // per)
+    if spb < 1:
+        raise ValueError(
+            f"K1 needs {per} bytes of shared memory for one scenario at N={N}, n_alphas={n_alphas} "
+            f"(lanes {K1_GROUP}), more than the {SMEM_PER_BLOCK} a block may have"
+        )
+    return {
+        "group": K1_GROUP,
+        "scenarios_per_block": spb,
+        "threads": spb * K1_GROUP,
+        "blocks": -(-B // spb),
+        "smem_bytes": spb * per,
+    }
+
+
 def _planes(t: torch.Tensor) -> torch.Tensor:
     """(B, *s) -> (*s, B), contiguous float32: the scenario index minor."""
     return t.to(_F32).movedim(0, -1).contiguous()
@@ -638,7 +685,6 @@ class CudaBankSolver:
     def _launch(self, planes):
         from .. import _build
 
-        lib = _build.load_library()
         c = self.cfg
         dev = planes[0].device
         obs, u0 = planes[-2], planes[-1]
@@ -646,13 +692,17 @@ class CudaBankSolver:
         for p in planes:
             if p.dtype != _F32 or not p.is_contiguous():
                 raise ValueError("kernel inputs must be contiguous float32")
+        if self.kind == "point_stab":
+            k1_geometry(B, c.N, c.n_alphas)  # raises before any build
+        lib = _build.load_library()
         empty = lambda *s, dtype=_F32: torch.empty(*s, dtype=dtype, device=dev)  # noqa: E731
         U, X = empty(c.N, 2, B), empty(c.N + 1, 3, B)
-        kff, kfb, Ubest = empty(c.N, 2, B), empty(c.N, 2, 3, B), empty(c.N, 2, B)
         cost, kkt = empty(B), empty(B)
         iters, lsro = empty(B, dtype=torch.int32), empty(B, dtype=torch.int32)
         mu, stage, first = self._schedule(dev)
-        ptrs = [p.data_ptr() for p in (*planes, mu, stage, first, U, X, kff, kfb, Ubest, cost, kkt, iters, lsro)]
+        # K2 keeps its scratch in device memory; K1 in shared memory
+        scratch = () if self.kind == "point_stab" else (empty(c.N, 2, B), empty(c.N, 2, 3, B), empty(c.N, 2, B))
+        ptrs = [p.data_ptr() for p in (*planes, mu, stage, first, U, X, *scratch, cost, kkt, iters, lsro)]
         sched = [
             B, c.N, n_obs, len(c.mus), c.n_alphas,
             c.dt, c.lo_v, c.hi_v, c.lo_w, c.hi_w, c.eps_v, c.eps_w,
@@ -661,7 +711,7 @@ class CudaBankSolver:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             if self.kind == "point_stab":
-                err = lib.mpc_point_stab_launch(*ptrs, *sched, int(c.fast_sincos), BLOCK, stream)
+                err = lib.mpc_point_stab_launch(*ptrs, *sched, int(c.fast_sincos), stream)
             else:
                 err = lib.mpc_tracking_launch(
                     *ptrs, *sched, int(c.fast_sincos), int(c.wrap_yaw), BLOCK, stream
@@ -699,18 +749,38 @@ class CudaBankSolver:
         """The plain PyTorch version on any device: the kernel's yardstick."""
         return self._finish(self._plain(self._pack(thetas, U0s)))
 
-    def kernel_info(self, block: int = BLOCK) -> dict:
+    def kernel_info(self, B: int = 4096) -> dict:
         """Registers, local memory and resident blocks per SM of the kernel
-        at ``block`` threads (builds the kernels; needs a CUDA device)."""
+        at its geometry for a bank of B scenarios; for K1 also that geometry
+        as its entry point computes it (the keys of :func:`k1_geometry`) and
+        ptxas's spill stores. Builds the kernels; needs a CUDA device."""
         from .. import _build
 
+        if self.kind == "point_stab":
+            k1_geometry(B, self.cfg.N, self.cfg.n_alphas)  # raises before any build
         lib = _build.load_library()
-        out = (ctypes.c_int * 3)()
-        fn = lib.mpc_point_stab_info if self.kind == "point_stab" else lib.mpc_tracking_info
-        err = fn(block, ctypes.cast(out, ctypes.c_void_p))
+        out = (ctypes.c_int * 6)()
+        ptr = ctypes.cast(out, ctypes.c_void_p)
+        if self.kind == "point_stab":
+            err = lib.mpc_point_stab_info(B, self.cfg.N, self.cfg.n_alphas, ptr)
+        else:
+            err = lib.mpc_tracking_info(BLOCK, ptr)
         if err != 0:
             raise RuntimeError(f"{self.kind} kernel info failed: {lib.mpc_error_string(err).decode()}")
-        return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
+        if self.kind != "point_stab":
+            return {"threads": BLOCK, "registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
+        group, spb, smem, regs, local, per_sm = out
+        return {
+            "group": group,
+            "scenarios_per_block": spb,
+            "threads": spb * group,
+            "blocks": -(-B // spb),
+            "smem_bytes": smem,
+            "registers": regs,
+            "local_bytes": local,
+            "blocks_per_sm": per_sm,
+            "spill_stores": _build.spill_stores("point_stab_kernel"),
+        }
 
 
 def make_cuda_point_stab_solver(

@@ -7,7 +7,8 @@ pieces:
    runs long dependent chains of FMAs, ``exp``, ``log`` or paired sin/cos per
    element, built beside K1 and K2 under their flags, and gives this card's
    rate for each op class as the solver kernels execute it.
-   :func:`measure_loop_overhead` measures one loop trip at K1's own geometry.
+   :func:`measure_loop_overhead` measures one loop trip at K2's geometry
+   (one thread per scenario).
 
 2. **Analytic op counts** (:func:`point_stab_solve_flops`,
    :func:`tracking_solve_flops`, ...): the per-scenario written-op ledgers
@@ -501,9 +502,10 @@ def measure_loop_overhead(
     cols: int = 128,
     device=None,
 ) -> float:
-    """Measured per-trip overhead (seconds) of a loop in a kernel at K1's
-    geometry: ``rows * cols`` elements (default 4096, the bank) in blocks
-    of ``cuda_kernel.BLOCK`` (64) threads.
+    """Measured per-trip overhead (seconds) of a loop in a kernel at the
+    one-thread-per-scenario geometry of K2: ``rows * cols`` elements
+    (default 4096, the bank) in blocks of ``cuda_kernel.BLOCK`` (64)
+    threads.
 
     Method: the FMA chain at ``unroll=16`` measures the FMA rate; the same
     chain at ``unroll=1`` pays one loop trip (counter, compare, branch) per

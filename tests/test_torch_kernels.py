@@ -8,6 +8,12 @@ cost rtol 1e-3, the chunk-edge bank 2e-4 / 2e-4. The TPU kernel exits per
 (8, 128) tile and the port per scenario; the difference stays inside those
 bands. The CUDA kernels themselves run only on the card (the `cuda`
 marker): there they are held against the plain versions.
+
+K1 runs one scenario on a group of lanes with a speculative line search
+(csrc/group_solve.cuh). Its launch geometry is plain Python, tested here,
+and so is the equivalence its bit-equality rests on: a transcription of
+the group schedule on the plain version's model classes reproduces
+``_bank_plain`` bit for bit.
 """
 
 import jax
@@ -212,6 +218,212 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert before.parent == _build.BUILD_DIR
 
 
+def test_spill_stores_are_read_per_kernel(monkeypatch, tmp_path):
+    lib = tmp_path / "libmpc_kernels_0.so"
+    lib.with_suffix(".log").write_text(
+        "ptxas info    : Function properties for _ZN3mpc15tracking_kernelEPKfS1_S1_S1_S1_iNS_9SolveArgsEi\n"
+        "    128 bytes stack frame, 200 bytes spill stores, 256 bytes spill loads\n"
+        "ptxas info    : Function properties for _ZN3mpc17point_stab_kernelEPKfS1_S1_iNS_9SolveArgsEii\n"
+        "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    )
+    monkeypatch.setattr(_build, "library_path", lambda: lib)
+    assert _build.spill_stores("tracking_kernel") == 200
+    assert _build.spill_stores("point_stab_kernel") == 0
+    with pytest.raises(RuntimeError, match="no ptxas report"):
+        _build.spill_stores("chain_kernel")
+
+
+def test_k1_constants_mirror_the_kernel_source():
+    """The wrapper's pre-build check uses the kernel's own constants."""
+    src = (_build.CSRC / "point_stab.cu").read_text()
+    assert f"#define MPC_K1_GROUP {ck.K1_GROUP}\n" in src
+    assert f"#define MPC_K1_SCENARIOS_PER_BLOCK {ck.K1_SCENARIOS_PER_BLOCK}\n" in src
+    assert f"kMaxSmemBytes = {ck.SMEM_PER_BLOCK};" in src
+    group = (_build.CSRC / "group_solve.cuh").read_text()
+    assert "return (3 * (N + 1) + 11 * N + (recs > cands ? recs : cands)) | 1;" in group
+    assert "recs = 17 * N, cands = 5 * N * slots;" in group
+
+
+@pytest.mark.parametrize(
+    "B,N,n_alphas", [(1, 20, 10), (4096, 20, 10), (1, 30, 6), (4096, 30, 6), (13, 20, 10)],
+    ids=["B1", "headline", "tick", "bank_N30", "ragged"],
+)
+def test_k1_geometry_covers_bank_and_tick(B, N, n_alphas):
+    geo = ck.k1_geometry(B, N, n_alphas)
+    spb, G = geo["scenarios_per_block"], geo["group"]
+    assert G == ck.K1_GROUP and spb == min(ck.K1_SCENARIOS_PER_BLOCK, B)
+    assert geo["threads"] == spb * G <= 256  # K1's __launch_bounds__
+    assert (geo["blocks"] - 1) * spb < B <= geo["blocks"] * spb  # every scenario, no empty block
+    per = ck.k1_scratch_floats(N, n_alphas)
+    assert per % 2 == 1  # odd stride: a warp's groups read different banks
+    # X, U, kff, kfb, stage terms, and the candidates' slots or the records
+    assert per >= 3 * (N + 1) + 11 * N + max(17 * N, 5 * N * min(G, n_alphas))
+    assert geo["smem_bytes"] == 4 * spb * per <= ck.SMEM_PER_BLOCK
+
+
+def test_k1_geometry_fits_scenarios_to_the_shared_memory_budget():
+    per = 4 * ck.k1_scratch_floats(600, 10)
+    geo = ck.k1_geometry(4096, 600, 10)
+    assert geo["scenarios_per_block"] == ck.SMEM_PER_BLOCK // per < ck.K1_SCENARIOS_PER_BLOCK
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.k1_geometry(1, 2000, 10)
+
+
+def test_k1_wrapper_raises_beyond_shared_memory_before_any_build(monkeypatch):
+    def no_build():
+        raise AssertionError("the kernels were built")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, device="cpu")
+    small = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST)
+    big = ck.CudaBankSolver("point_stab", small.cfg._replace(N=2000), False)
+    th = torch.func.vmap(tprob.make_theta)(torch.zeros(2, 3), torch.ones(2, 3))
+    with pytest.raises(ValueError, match="more than the 232448"):
+        big._launch(big._pack(th, torch.zeros(2, 2000, 2)))
+    with pytest.raises(ValueError, match="shared memory"):
+        big.kernel_info(2)
+    assert big.launches == 0
+
+
+def _group_schedule(cfg, m, u0):
+    """csrc/group_solve.cuh bank_solve_group on (B,) planes: the iterate is
+    rolled out once, the barrier cost is summed from per-stage terms in k
+    order, every line-search candidate is evaluated from the same U, X,
+    kff and kfb and the lowest passing index wins (its states become the
+    next iterate's X), and ls_rollouts counts the winner's index + 1, or
+    n_alphas if none passes."""
+    N, dt, A = cfg.N, cfg.dt, cfg.n_alphas
+    f32 = np.float32
+    lo, hi, eps, d = f32([cfg.lo_v, cfg.lo_w]), f32([cfg.hi_v, cfg.hi_w]), f32([cfg.eps_v, cfg.eps_w]), f32(1e-3)
+    (il_v, il_w), (ih_v, ih_w) = (lo + eps).tolist(), (hi - eps).tolist()
+    (sl_v, sl_w), (sh_v, sh_w) = (lo + d * (hi - lo)).tolist(), (hi - d * (hi - lo)).tolist()
+    lo_v, hi_v, lo_w, hi_w = cfg.lo_v, cfg.hi_v, cfg.lo_w, cfg.hi_w
+    B = u0.shape[-1]
+    i32 = torch.int32
+
+    def barrier(v, w):
+        return torch.log(v - lo_v) + torch.log(hi_v - v) + torch.log(w - lo_w) + torch.log(hi_w - w)
+
+    def cost(U, X, mu=None):  # per-stage terms, summed in k order
+        J = torch.zeros(B)
+        for k in range(N):
+            c = m.stage_cost(k, *X[k], U[k, 0], U[k, 1])
+            J = J + (c if mu is None else c - mu * barrier(U[k, 0], U[k, 1]))
+        return J + m.terminal_cost(*X[N])
+
+    U = torch.stack([torch.clamp(u0[:, 0], sl_v, sh_v), torch.clamp(u0[:, 1], sl_w, sh_w)], dim=1)
+    px, py, th = m.x0
+    X = [torch.stack([px, py, th])]
+    for k in range(N):
+        px, py, th = m.step(px, py, th, U[k, 0], U[k, 1])
+        X.append(torch.stack([px, py, th]))
+    X = torch.stack(X)
+    reg = torch.full((B,), cfg.reg_init)
+    done, iters, lsro = (torch.zeros(B, dtype=i32) for _ in range(3))
+    for mu, st, first in zip(cfg.mus, cfg.stages, cfg.firsts):
+        active = done <= st
+        if not bool(active.any()):
+            continue
+        iters += active.to(i32)
+        J = cost(U, X, mu)
+        V = m.terminal_value(*X[N])
+        dV1 = dV2 = torch.zeros(B)
+        kff, kfb = [None] * N, [None] * N
+        for k in reversed(range(N)):
+            v, w = U[k, 0], U[k, 1]
+            g = m.grad(k, *X[k], v, w)
+            sv_lo, sv_hi, sw_lo, sw_hi = v - lo_v, hi_v - v, w - lo_w, hi_w - w
+            g = g._replace(
+                lu0=g.lu0 - mu * (1.0 / sv_lo - 1.0 / sv_hi),
+                lu1=g.lu1 - mu * (1.0 / sw_lo - 1.0 / sw_hi),
+                luu00=g.luu00 + mu * (1.0 / (sv_lo * sv_lo) + 1.0 / (sv_hi * sv_hi)),
+                luu11=g.luu11 + mu * (1.0 / (sw_lo * sw_lo) + 1.0 / (sw_hi * sw_hi)),
+            )
+            V, kff[k], kfb[k], d1, d2 = ck._riccati_step(V, m.jac(*X[k], v, w), g, reg, dt)
+            dV1, dV2 = dV1 + d1, dV2 + d2
+        if not first:
+            hit = active & (-(dV1 + dV2) - cfg.stage_tol * (1.0 + J.abs()) < 0.0)
+            done = torch.where(hit, torch.full_like(done, st + 1), done)
+
+        oks, Us, Xs = [], [], []
+        for a in range(A):  # every candidate, speculatively
+            alpha = 2.0**-a
+            px, py, th = m.x0
+            Jc = torch.zeros(B)
+            cand, states = [], [X[0]]
+            for k in range(N):
+                dx0, dx1, dx2 = px - X[k, 0], py - X[k, 1], th - X[k, 2]
+                (K00, K01, K02), (K10, K11, K12) = kfb[k]
+                v = U[k, 0] + alpha * kff[k][0] + (K00 * dx0 + K01 * dx1 + K02 * dx2)
+                w = U[k, 1] + alpha * kff[k][1] + (K10 * dx0 + K11 * dx1 + K12 * dx2)
+                v, w = torch.clamp(v, il_v, ih_v), torch.clamp(w, il_w, ih_w)
+                Jc = Jc + (m.stage_cost(k, px, py, th, v, w) - mu * barrier(v, w))
+                cand.append(torch.stack([v, w]))
+                px, py, th = m.step(px, py, th, v, w)
+                states.append(torch.stack([px, py, th]))
+            Jc = Jc + m.terminal_cost(px, py, th)
+            expected = -(alpha * dV1 + alpha * alpha * dV2)
+            Jc = torch.where(torch.isnan(Jc), torch.inf, Jc)
+            oks.append(Jc <= J - cfg.c1 * torch.clamp(expected, min=0.0))
+            Us.append(torch.stack(cand))
+            Xs.append(torch.stack(states))
+        ok = torch.stack(oks)  # (A, B)
+        passed = ok.any(0)
+        win = ok.to(i32).argmax(0)  # the lowest passing index
+        lsro += torch.where(active, torch.where(passed, win + 1, A), 0).to(i32)
+        acc = passed & active
+        cols = torch.arange(B)
+        U = torch.where(acc, torch.stack(Us)[win, ..., cols].permute(1, 2, 0), U)
+        X = torch.where(acc, torch.stack(Xs)[win, ..., cols].permute(1, 2, 0), X)
+        grown = torch.clamp(reg * 10.0 + cfg.reg_min, max=cfg.reg_max)
+        reg = torch.where(active, torch.where(acc, torch.clamp(reg * 0.5, min=cfg.reg_min), grown), reg)
+
+    Jtrue = cost(U, X)
+    l0, l1, l2 = m.terminal_value(*X[N])[:3]
+    kkt = torch.zeros(B)
+    for k in reversed(range(N)):
+        v, w = U[k, 0], U[k, 1]
+        a02, a12, bc, bsn, b01, b11 = m.jac(*X[k], v, w)
+        g = m.grad(k, *X[k], v, w)
+        gu0 = g.lu0 + bc * l0 + bsn * l1
+        gu1 = g.lu1 + b01 * l0 + b11 * l1 + dt * l2
+        r0 = (v - torch.clamp(v - gu0, lo_v, hi_v)).abs()
+        r1 = (w - torch.clamp(w - gu1, lo_w, hi_w)).abs()
+        kkt = torch.maximum(kkt, torch.maximum(r0, r1))
+        l0, l1, l2 = g.lx0 + l0, g.lx1 + l1, g.lx2 + a02 * l0 + a12 * l1 + l2
+    return U, X, Jtrue, kkt, iters, lsro
+
+
+@pytest.mark.parametrize("parity", [True, False], ids=["parity", "obstacle_active"])
+def test_speculative_line_search_reproduces_first_accept(parity):
+    """The equivalence K1's lane groups rest on, on a B=64, N=20 bank with
+    the default schedule: the group schedule gives _bank_plain's U, X,
+    cost, KKT residual, iters and ls_rollouts bit for bit."""
+    Bn, Nh = 64, 20
+    rng = np.random.default_rng(11)
+    x0 = rng.uniform(-0.3, 0.3, size=(Bn, 3))
+    goal = np.concatenate([rng.uniform(-1.5, 1.5, size=(Bn, 2)), rng.uniform(-np.pi, np.pi, size=(Bn, 1))], axis=1)
+    settings = ts.SolverSettings()
+    prob = ts.make_point_stabilization(T_PARAMS, horizon=Nh, settings=settings, reference_parity=parity, device="cpu")
+    args = [torch.tensor(x0, dtype=torch.float32), torch.tensor(goal, dtype=torch.float32)]
+    if not parity:  # three live points near each start-goal line
+        ox, oy = np.full((Bn, N_OBS), 100.0), np.full((Bn, N_OBS), 100.0)
+        mid = (x0[:, :2] + goal[:, :2]) / 2
+        for j in range(3):
+            ox[:, j], oy[:, j] = (mid + rng.uniform(-0.4, 0.4, size=(Bn, 2))).T
+        args += [torch.tensor(ox, dtype=torch.float32), torch.tensor(oy, dtype=torch.float32)]
+    solver = ck.make_cuda_point_stab_solver(prob.ocp, settings, with_counters=True)
+    x0g, w, obs, u0 = solver._pack(torch.func.vmap(prob.make_theta)(*args), torch.zeros(Bn, Nh, 2))
+    model = ck._PointStabModel(solver.cfg, x0g, w, obs)
+    ref = ck._bank_plain(solver.cfg, model, u0)
+    got = _group_schedule(solver.cfg, model, u0)
+    for name, a, b in zip(("U", "X", "cost", "kkt", "iters", "ls_rollouts"), got, ref):
+        assert torch.equal(a, b), name
+    iters, ls = ref[4], ref[5]
+    # the bank exercises first accepts beyond alpha = 1
+    assert int((ls > iters).sum()) > 0 and int(iters.sum()) > 0
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -219,18 +431,29 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _assert_bit_equal(got, ref):
+    (sol, cnt), (rsol, rcnt) = got, ref
+    for name in ("U", "X", "cost", "kkt_residual", "n_iters"):
+        assert torch.equal(getattr(sol, name), getattr(rsol, name)), name
+    for name in ("iters", "ls_rollouts"):
+        assert torch.equal(cnt[name], rcnt[name]), name
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions(cuda_device):
     """K1 and K2 launched on the card against their plain versions on the
-    same CUDA tensors: built with -fmad=false, they agree bit for bit."""
+    same CUDA tensors: built with -fmad=false, they agree bit for bit, on
+    every output and on the executed-work counters."""
     _, thetas = _point_bank(1, False, [(0, (0.3, 0.7, -0.2, 0.2))])
     tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, reference_parity=False, device="cpu")
-    k1 = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST)
+    k1 = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST, with_counters=True)
     th, U0 = theta_from_numpy(thetas, cuda_device), torch.zeros(B, N, 2, device=cuda_device)
-    torch.testing.assert_close(k1(th, U0).U, k1.plain(th, U0).U, atol=0.0, rtol=0.0)
+    _assert_bit_equal(k1(th, U0), k1.plain(th, U0))
+    one = {k: v[:1] for k, v in th.items()}  # B=1: one group in one block
+    _assert_bit_equal(k1(one, U0[:1]), k1.plain(one, U0[:1]))
     _, tprob2, thetas2 = _tracking_bank(7, 0.9, (2.0, 2.0, 1.0))
-    k2 = ck.make_cuda_tracking_solver(tprob2.ocp, T_FAST)
+    k2 = ck.make_cuda_tracking_solver(tprob2.ocp, T_FAST, with_counters=True)
     th2 = theta_from_numpy(thetas2, cuda_device)
-    torch.testing.assert_close(k2(th2, U0).U, k2.plain(th2, U0).U, atol=0.0, rtol=0.0)
+    _assert_bit_equal(k2(th2, U0), k2.plain(th2, U0))
     torch.cuda.synchronize()
-    assert (k1.launches, k2.launches) == (1, 1)
+    assert (k1.launches, k2.launches) == (2, 1)
