@@ -44,12 +44,12 @@ _SCHEDULE = [_I] * 5 + [_F] * 12  # B, N, n_obs, n_iters, n_alphas; dt ... stage
 _SIGNATURES = {
     # x0g w obs u0 mu stage first | U X cost kkt iters lsro
     "mpc_point_stab_launch": [_P] * 13 + _SCHEDULE + [_I, _P],  # fast, stream
-    # x0 xref uref w obs u0 mu stage first | 9 outputs and scratch
-    "mpc_tracking_launch": [_P] * 18 + _SCHEDULE + [_I, _I, _I, _P],  # fast, wrap, block, stream
+    # x0 xref uref w obs u0 mu stage first | U X cost kkt iters lsro
+    "mpc_tracking_launch": [_P] * 15 + _SCHEDULE + [_I, _I, _P],  # fast, wrap, stream
     # x out n n_steps op unroll block stream
     "mpc_chain_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
     "mpc_point_stab_info": [_I] * 3 + [_P],  # B, N, n_alphas, out
-    "mpc_tracking_info": [_I, _P],
+    "mpc_tracking_info": [_I] * 3 + [_P],
     "mpc_error_string": [_I],
 }
 

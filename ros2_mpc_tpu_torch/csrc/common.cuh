@@ -1,16 +1,17 @@
-// Shared device code of the whole-solver bank kernels (point_stab.cu, tracking.cu).
-//
-// One thread solves one scenario: the full interior-point iLQR schedule of
+// Shared device code of the whole-solver bank kernels (point_stab.cu, tracking.cu):
+// the numeric helpers, the obstacle sums, the Riccati step and the launch
+// arguments. The schedule itself, the interior-point iLQR of
 // ros2_mpc_tpu/solver/pallas_kernel.py (barrier stages, Riccati sweep,
 // first-accept Armijo line search, stage-level early exit, true cost and
-// adjoint KKT residual) runs as a loop in the thread. The problem-specific
-// parts (transition, its Jacobian, the stage and terminal costs and their
-// derivatives) come from a Model struct; bank_solve<Model> is the schedule.
+// adjoint KKT residual) on a group of lanes per scenario, is
+// group_solve.cuh's bank_solve_group. The problem-specific parts
+// (transition, its Jacobian, the stage and terminal costs and their
+// derivatives) come from each kernel's Model struct.
 //
 // Layout: structure of arrays with the scenario index as the minor axis,
-// element i of scenario b at p[i * B + b], so a warp's 32 threads read 32
-// neighbouring floats. Scratch (X, U, kff, kfb, Ubest) is allocated by the
-// Python wrapper; the kernels allocate nothing.
+// element i of scenario b at p[i * B + b]. Inputs and outputs are allocated
+// by the Python wrapper, the scratch lives in shared memory; the kernels
+// allocate nothing.
 //
 // Numerics follow jax.numpy where it matters for parity:
 //  * clip, max and min keep NaN (jnp.clip/maximum/minimum do; fminf/fmaxf
@@ -161,11 +162,8 @@ struct SolveArgs {
   const float* mu;     // (n_iters,) barrier schedule
   const int* stage;    // (n_iters,) barrier stage of each iteration
   const int* first;    // (n_iters,) 1 on a stage's first iteration
-  float* U;            // (N, 2, B)   out, and the iterate
-  float* X;            // (N+1, 3, B) out, and the iterate's rollout
-  float* kff;          // (N, 2, B)   scratch: feedforward
-  float* kfb;          // (N, 2, 3, B) scratch: feedback gains
-  float* Ubest;        // (N, 2, B)   scratch: line-search candidate
+  float* U;            // (N, 2, B)   out: controls
+  float* X;            // (N+1, 3, B) out: their rollout
   float* cost;         // (B,) true cost
   float* kkt;          // (B,) projected-gradient KKT residual
   int* iters;          // (B,) executed iterations
@@ -176,8 +174,8 @@ struct SolveArgs {
 
 // Field by field, so that a reordering of SolveArgs cannot shift arguments.
 inline SolveArgs solve_args(const float* u0, const float* mu, const int* stage, const int* first,
-                            float* U, float* X, float* kff, float* kfb, float* Ubest, float* cost,
-                            float* kkt, int* iters, int* lsro, int B, int N, int n_iters,
+                            float* U, float* X, float* cost, float* kkt, int* iters,
+                            int* lsro, int B, int N, int n_iters,
                             int n_alphas, int fast_sincos, float dt, float lo_v, float hi_v,
                             float lo_w, float hi_w, float eps_v, float eps_w, float c1,
                             float reg_init, float reg_min, float reg_max, float stage_tol) {
@@ -188,9 +186,6 @@ inline SolveArgs solve_args(const float* u0, const float* mu, const int* stage, 
   a.first = first;
   a.U = U;
   a.X = X;
-  a.kff = kff;
-  a.kfb = kfb;
-  a.Ubest = Ubest;
   a.cost = cost;
   a.kkt = kkt;
   a.iters = iters;
@@ -301,153 +296,6 @@ __device__ __forceinline__ void riccati_step(Value& V, const Jac& j, const Grad&
 
   dV1 += kf0 * qu0 + kf1 * qu1;
   dV2 += 0.5f * (kf0 * qk0 + kf1 * qk1);
-}
-
-// The whole schedule for scenario b. Model M provides, on one scenario:
-//   x0[3]; step(px, py, th, v, w) (in place); jac(...) -> Jac;
-//   stage_cost(k, ...) and grad(k, ...) without the barrier;
-//   terminal_cost(px, py, th) and terminal_value(px, py, th) -> Value.
-template <class M>
-__device__ void bank_solve(const M& m, const SolveArgs& a, int b) {
-  const int B = a.B, N = a.N;
-  const Plane<const float> u0 = plane(a.u0, B, b);
-  const Plane<float> U = plane(a.U, B, b), X = plane(a.X, B, b), kff = plane(a.kff, B, b),
-                     kfb = plane(a.kfb, B, b), Ubest = plane(a.Ubest, B, b);
-  const float lo_v = a.lo_v, hi_v = a.hi_v, lo_w = a.lo_w, hi_w = a.hi_w;
-  const float int_lo_v = lo_v + a.eps_v, int_hi_v = hi_v - a.eps_v;
-  const float int_lo_w = lo_w + a.eps_w, int_hi_w = hi_w - a.eps_w;
-
-  // strictly interior start
-  for (int k = 0; k < N; ++k) {
-    U[2 * k] = clip_nan(u0[2 * k], lo_v + 1e-3f * (hi_v - lo_v), hi_v - 1e-3f * (hi_v - lo_v));
-    U[2 * k + 1] = clip_nan(u0[2 * k + 1], lo_w + 1e-3f * (hi_w - lo_w), hi_w - 1e-3f * (hi_w - lo_w));
-  }
-
-  float reg = a.reg_init;
-  int done = 0;  // barrier stages this scenario has finished
-  int n_it = 0, n_ls = 0;
-  for (int t = 0; t < a.n_iters; ++t) {
-    const int st = a.stage[t];
-    if (done > st) continue;  // stage-level early exit, per scenario
-    ++n_it;
-    const float mu = a.mu[t];
-
-    // rollout of the iterate and its barrier cost
-    float px = m.x0[0], py = m.x0[1], th = m.x0[2];
-    float J = 0.f;
-    X[0] = px;
-    X[1] = py;
-    X[2] = th;
-    for (int k = 0; k < N; ++k) {
-      const float v = U[2 * k], w = U[2 * k + 1];
-      J += m.stage_cost(k, px, py, th, v, w) - mu * barrier(a, v, w);
-      m.step(px, py, th, v, w);
-      X[3 * k + 3] = px;
-      X[3 * k + 4] = py;
-      X[3 * k + 5] = th;
-    }
-    J += m.terminal_cost(px, py, th);
-
-    // backward Riccati sweep
-    Value V = m.terminal_value(px, py, th);
-    float dV1 = 0.f, dV2 = 0.f;
-    for (int k = N - 1; k >= 0; --k) {
-      const float xp = X[3 * k], yp = X[3 * k + 1], tp = X[3 * k + 2];
-      const float v = U[2 * k], w = U[2 * k + 1];
-      const Jac jc = m.jac(xp, yp, tp, v, w);
-      Grad g = m.grad(k, xp, yp, tp, v, w);
-      const float sv_lo = v - lo_v, sv_hi = hi_v - v, sw_lo = w - lo_w, sw_hi = hi_w - w;
-      g.lu0 -= mu * (1.f / sv_lo - 1.f / sv_hi);
-      g.lu1 -= mu * (1.f / sw_lo - 1.f / sw_hi);
-      g.luu00 += mu * (1.f / (sv_lo * sv_lo) + 1.f / (sv_hi * sv_hi));
-      g.luu11 += mu * (1.f / (sw_lo * sw_lo) + 1.f / (sw_hi * sw_hi));
-      float kf[2], K[2][3];
-      riccati_step(V, jc, g, reg, a.dt, kf, K, dV1, dV2);
-      kff[2 * k] = kf[0];
-      kff[2 * k + 1] = kf[1];
-      for (int i = 0; i < 2; ++i)
-        for (int c = 0; c < 3; ++c) kfb[(2 * k + i) * 3 + c] = K[i][c];
-    }
-
-    // This scenario's Newton decrement is below tolerance: the rest of the
-    // stage would be no-ops (never on a stage's first iteration). The TPU
-    // kernel took this exit for a whole (8, 128) tile at once.
-    const float dec = -(dV1 + dV2);
-    if (a.first[t] == 0 && dec - a.stage_tol * (1.f + fabsf(J)) < 0.f) done = st + 1;
-
-    // first-accept Armijo line search over alpha = 1, 1/2, 1/4, ...
-    // Candidates go to Ubest, never into U: U and X of later stages are
-    // still read by the same candidate rollout.
-    bool accepted = false;
-    for (int ai = 0; ai < a.n_alphas && !accepted; ++ai) {
-      ++n_ls;
-      const float alpha = ldexpf(1.f, -ai);
-      float cx = m.x0[0], cy = m.x0[1], cth = m.x0[2];
-      float Jc = 0.f;
-      for (int k = 0; k < N; ++k) {
-        const float dx0 = cx - X[3 * k], dx1 = cy - X[3 * k + 1], dx2 = cth - X[3 * k + 2];
-        const int f0 = 6 * k, f1 = 6 * k + 3;
-        float v = U[2 * k] + alpha * kff[2 * k] + (kfb[f0] * dx0 + kfb[f0 + 1] * dx1 + kfb[f0 + 2] * dx2);
-        float w = U[2 * k + 1] + alpha * kff[2 * k + 1] +
-                  (kfb[f1] * dx0 + kfb[f1 + 1] * dx1 + kfb[f1 + 2] * dx2);
-        v = clip_nan(v, int_lo_v, int_hi_v);
-        w = clip_nan(w, int_lo_w, int_hi_w);
-        Jc += m.stage_cost(k, cx, cy, cth, v, w) - mu * barrier(a, v, w);
-        Ubest[2 * k] = v;
-        Ubest[2 * k + 1] = w;
-        m.step(cx, cy, cth, v, w);
-      }
-      Jc += m.terminal_cost(cx, cy, cth);
-      const float expected = -(alpha * dV1 + alpha * alpha * dV2);
-      if (isnan(Jc)) Jc = INFINITY;
-      accepted = Jc <= J - a.c1 * max_nan(expected, 0.f);
-    }
-    if (accepted) {
-      for (int i = 0; i < 2 * N; ++i) U[i] = Ubest[i];
-      reg = fmaxf(reg * 0.5f, a.reg_min);
-    } else {
-      reg = fminf(reg * 10.f + a.reg_min, a.reg_max);
-    }
-  }
-
-  // final rollout and true cost (no barrier)
-  float px = m.x0[0], py = m.x0[1], th = m.x0[2];
-  float Jtrue = 0.f;
-  X[0] = px;
-  X[1] = py;
-  X[2] = th;
-  for (int k = 0; k < N; ++k) {
-    const float v = U[2 * k], w = U[2 * k + 1];
-    Jtrue += m.stage_cost(k, px, py, th, v, w);
-    m.step(px, py, th, v, w);
-    X[3 * k + 3] = px;
-    X[3 * k + 4] = py;
-    X[3 * k + 5] = th;
-  }
-  Jtrue += m.terminal_cost(px, py, th);
-
-  // adjoint sweep: projected-gradient KKT residual of the true cost
-  const Value T = m.terminal_value(px, py, th);
-  float l0 = T.vx0, l1 = T.vx1, l2 = T.vx2, kkt = 0.f;
-  for (int k = N - 1; k >= 0; --k) {
-    const float xp = X[3 * k], yp = X[3 * k + 1], tp = X[3 * k + 2];
-    const float v = U[2 * k], w = U[2 * k + 1];
-    const Jac jc = m.jac(xp, yp, tp, v, w);
-    const Grad g = m.grad(k, xp, yp, tp, v, w);
-    const float gu0 = g.lu0 + jc.bc * l0 + jc.bsn * l1;
-    const float gu1 = g.lu1 + jc.b01 * l0 + jc.b11 * l1 + a.dt * l2;
-    const float r0 = fabsf(v - clip_nan(v - gu0, lo_v, hi_v));
-    const float r1 = fabsf(w - clip_nan(w - gu1, lo_w, hi_w));
-    kkt = max_nan(kkt, max_nan(r0, r1));
-    const float n2 = g.lx2 + jc.a02 * l0 + jc.a12 * l1 + l2;
-    l0 = g.lx0 + l0;
-    l1 = g.lx1 + l1;
-    l2 = n2;
-  }
-  a.cost[b] = Jtrue;
-  a.kkt[b] = kkt;
-  a.iters[b] = n_it;
-  a.lsro[b] = n_ls;
 }
 
 }  // namespace mpc

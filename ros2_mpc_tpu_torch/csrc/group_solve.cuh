@@ -1,15 +1,17 @@
-// Lane-group schedule of the whole-solver bank kernels: one scenario on G
-// lanes of a warp (G = 8, 16 or 32), its iterate and scratch in shared memory.
+// Lane-group schedule of the whole-solver bank kernels (K1 point_stab.cu,
+// K2 tracking.cu): one scenario on G lanes of a warp (G = 8, 16 or 32), its
+// iterate and scratch in shared memory.
 //
-// The algorithm and every scenario's arithmetic are bank_solve's
-// (common.cuh), in the same order of operations, so the result is bit-equal
-// to bank_solve and to the plain versions. What moves across lanes is the
-// work that has no dependency along the horizon:
+// Every scenario's arithmetic is that of the plain versions
+// (solver/cuda_kernel.py _bank_plain), in the same order of operations, so
+// the result is bit-equal to them. What moves across lanes is the work that
+// has no dependency along the horizon:
 //
 //  * the per-stage terms of the iterate's barrier cost and its derivatives
 //    (Model::jac, Model::grad and the four barrier corrections), one stage
-//    per lane; the cost is then summed in k order from 0.f, as bank_solve's
-//    `J += ...` does, never as a tree;
+//    per lane; the cost is then summed in k order from 0.f, as the plain
+//    rollout's `J = J + ...` does, never as a tree, and the terminal cost
+//    is added last;
 //  * the line search: lane a rolls out the candidate alpha = 2^-(r*G + a)
 //    in round r. Each candidate depends only on U, X, kff, kfb and its own
 //    alpha, never on a rejected one, so the lowest passing index is what
@@ -17,14 +19,19 @@
 //
 // The Riccati sweep and the adjoint KKT sweep stay sequential in k: every
 // lane of the group runs them on the same shared records (a broadcast
-// read), so no value is shuffled. The accepted candidate's states become
-// the next iterate's rollout (the same transitions on the same controls),
-// so the iterate is rolled out once, before the first iteration. The
-// winner's controls and states come from its lane's slot in shared memory.
+// read), so no value is shuffled; both start from Model::terminal_value at
+// X[N]. The accepted candidate's states become the next iterate's rollout
+// (the same transitions on the same controls), so the iterate is rolled out
+// once, before the first iteration. The winner's controls and states come
+// from its lane's slot in shared memory.
 //
-// Counters keep bank_solve's meaning: iters counts executed iterations,
+// Counters keep the first-accept meaning: iters counts executed iterations,
 // lsro the first-accept candidates (the winner's index + 1, or n_alphas if
 // none passes), whatever the lanes ran speculatively.
+//
+// A Model provides, on one scenario: x0[3]; step(px, py, th, v, w) (in
+// place); jac(...) -> Jac; stage_cost(k, ...) and grad(k, ...) without the
+// barrier; terminal_cost(px, py, th) and terminal_value(px, py, th) -> Value.
 //
 // Shared memory of one scenario (floats; group_scratch_floats):
 //   X (N+1)*3 | U 2N | kff 2N | kfb 6N | stage terms N | work
@@ -39,11 +46,66 @@
 
 namespace mpc {
 
-// floats of one scenario's scratch (cuda_kernel.k1_scratch_floats mirrors it)
-__host__ __device__ inline int group_scratch_floats(int N, int n_alphas, int G) {
+// floats of one scenario's scratch: `extra` floats the kernel keeps ahead
+// of the schedule's (cuda_kernel.group_scratch_floats mirrors it)
+__host__ __device__ inline int group_scratch_floats(int N, int n_alphas, int G, int extra) {
   const int slots = n_alphas < G ? n_alphas : G;
   const int recs = 17 * N, cands = 5 * N * slots;
-  return (3 * (N + 1) + 11 * N + (recs > cands ? recs : cands)) | 1;
+  return (extra + 3 * (N + 1) + 11 * N + (recs > cands ? recs : cands)) | 1;
+}
+
+// the most dynamic shared memory a block may have on sm_90 (227 KB)
+constexpr int kMaxSmemBytes = 232448;
+
+// A lane-group kernel's launch for B scenarios at (N, n_alphas), G lanes a
+// scenario, at most SPB scenarios a block and PerStage floats a stage of the
+// kernel's own ahead of each scenario's scratch: fewer scenarios share a
+// block where B or the shared-memory budget asks for it
+// (cuda_kernel.group_geometry mirrors it).
+struct Geometry {
+  int scratch;     // floats of one scenario's scratch
+  int spb;         // scenarios a block, 0 where one scenario does not fit
+  int smem_bytes;  // dynamic shared memory a block
+};
+
+template <int G, int SPB, int PerStage = 0>
+inline Geometry geometry(int B, int N, int n_alphas) {
+  static_assert(SPB >= 1 && G * SPB <= 256, "a lane-group kernel's blocks hold at most 256 threads");
+  Geometry g;
+  g.scratch = group_scratch_floats(N, n_alphas, G, PerStage * N);
+  const int fit = kMaxSmemBytes / (g.scratch * static_cast<int>(sizeof(float)));
+  g.spb = SPB < B ? SPB : B;
+  g.spb = g.spb < fit ? g.spb : fit;
+  g.smem_bytes = g.spb * g.scratch * static_cast<int>(sizeof(float));
+  return g;
+}
+
+// Dynamic shared memory above 48 KB needs the kernel's opt-in.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
+// A lane-group kernel's launch for B scenarios at (N, n_alphas) and what the
+// card makes of it, in out[0..5]: lanes a scenario, scenarios a block,
+// dynamic shared memory bytes a block, registers a thread, local memory
+// bytes a thread, resident blocks per SM. Returns a cudaError_t.
+template <int G, int SPB, int PerStage = 0, class Kernel>
+inline cudaError_t group_info(Kernel kernel, int B, int N, int n_alphas, int* out) {
+  const Geometry g = geometry<G, SPB, PerStage>(B, N, n_alphas);
+  if (g.spb < 1) return cudaErrorInvalidValue;
+  out[0] = G;
+  out[1] = g.spb;
+  out[2] = g.smem_bytes;
+  cudaError_t err = allow_smem(kernel, g.smem_bytes);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], kernel, g.spb * G, g.smem_bytes);
 }
 
 // one stage's derivatives: the Jacobian and the stage-cost derivatives
@@ -172,7 +234,7 @@ __device__ void bank_solve_group(const M& m, const SolveArgs& a, int b, float* s
     if (a.first[t] == 0 && dec - a.stage_tol * (1.f + fabsf(J)) < 0.f) done = st + 1;
     grp.sync();  // kff and kfb written; the records are dead, `work` takes the candidates
 
-    // One candidate rollout at step size alpha, bank_solve's arithmetic;
+    // One candidate rollout at step size alpha, the plain line search's arithmetic;
     // its controls and states go to `slot`. Returns its barrier cost, NaN
     // made infinite.
     auto candidate = [&](float alpha, float* slot) {

@@ -22,10 +22,10 @@
 // per lane, so an iteration's chain is the Riccati sweep and one candidate
 // rollout; the iterate, the gains and the candidates live in shared memory,
 // sized at launch from N and n_alphas. 4096 scenarios are 4096 * G / 32
-// warps. Each scenario keeps its own early exits and bank_solve's order of
-// operations, so K1 stays bit-equal to its plain version. The lanes per
+// warps. Each scenario keeps its own early exits and its plain version's order
+// of operations, so K1 stays bit-equal to it. The lanes per
 // scenario and the scenarios per block are compile-time constants fixed by
-// measurement (PERF.md): k1_sweep.py builds its own libraries with other
+// measurement (PERF.md): geometry_sweep.py builds its own libraries with other
 // values through -DMPC_K1_GROUP and -DMPC_K1_SCENARIOS_PER_BLOCK.
 #include "group_solve.cuh"
 
@@ -132,28 +132,6 @@ struct PointStabModel {
 #endif
 constexpr int kGroup = MPC_K1_GROUP;  // lanes a scenario
 constexpr int kScenariosPerBlock = MPC_K1_SCENARIOS_PER_BLOCK;
-static_assert(kScenariosPerBlock >= 1 && kGroup * kScenariosPerBlock <= 256,
-              "K1's blocks hold at most 256 threads");
-// the most dynamic shared memory a block may have on sm_90 (227 KB)
-constexpr int kMaxSmemBytes = 232448;
-
-// K1's launch for B scenarios at (N, n_alphas): fewer scenarios share a
-// block where B or the shared-memory budget asks for it.
-struct Geometry {
-  int scratch;     // floats of one scenario's scratch
-  int spb;         // scenarios a block, 0 where one scenario does not fit
-  int smem_bytes;  // dynamic shared memory a block
-};
-
-inline Geometry geometry(int B, int N, int n_alphas) {
-  Geometry g;
-  g.scratch = group_scratch_floats(N, n_alphas, kGroup);
-  const int fit = kMaxSmemBytes / (g.scratch * static_cast<int>(sizeof(float)));
-  g.spb = kScenariosPerBlock < B ? kScenariosPerBlock : B;
-  g.spb = g.spb < fit ? g.spb : fit;
-  g.smem_bytes = g.spb * g.scratch * static_cast<int>(sizeof(float));
-  return g;
-}
 
 // At most 256 threads a block, and enough resident blocks per SM for one
 // wave of the 4096-scenario bank (4096 * G / 32 warps on 132 SMs): this caps
@@ -167,13 +145,6 @@ __global__ void __launch_bounds__(256, kGroup / 8)
   if (b >= a.B) return;  // the whole group leaves together
   const PointStabModel m(x0g, w, obs, n_obs, a, b);
   bank_solve_group<PointStabModel, kGroup>(m, a, b, smem + gi * scratch);
-}
-
-// Dynamic shared memory above 48 KB needs the kernel's opt-in.
-inline cudaError_t allow_smem(int smem_bytes) {
-  if (smem_bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(point_stab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes);
 }
 
 }  // namespace mpc
@@ -190,14 +161,14 @@ int mpc_point_stab_launch(const float* x0g, const float* w, const float* obs, co
                           float hi_w, float eps_v, float eps_w, float c1, float reg_init,
                           float reg_min, float reg_max, float stage_tol, int fast_sincos,
                           void* stream) {
-  const mpc::Geometry g = mpc::geometry(B, N, n_alphas);
+  const mpc::Geometry g = mpc::geometry<mpc::kGroup, mpc::kScenariosPerBlock>(B, N, n_alphas);
   if (g.spb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = mpc::allow_smem(g.smem_bytes);
+  const cudaError_t err = mpc::allow_smem(mpc::point_stab_kernel, g.smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const mpc::SolveArgs a = mpc::solve_args(u0, mu, stage, first, U, X, nullptr, nullptr, nullptr,
-                                           cost, kkt, iters, lsro, B, N, n_iters, n_alphas,
-                                           fast_sincos, dt, lo_v, hi_v, lo_w, hi_w, eps_v, eps_w,
-                                           c1, reg_init, reg_min, reg_max, stage_tol);
+  const mpc::SolveArgs a = mpc::solve_args(u0, mu, stage, first, U, X, cost, kkt, iters, lsro, B,
+                                           N, n_iters, n_alphas, fast_sincos, dt, lo_v, hi_v,
+                                           lo_w, hi_w, eps_v, eps_w, c1, reg_init, reg_min,
+                                           reg_max, stage_tol);
   const int grid = (B + g.spb - 1) / g.spb;
   mpc::point_stab_kernel<<<grid, g.spb * mpc::kGroup, g.smem_bytes,
                            static_cast<cudaStream_t>(stream)>>>(x0g, w, obs, n_obs, a, g.spb,
@@ -206,24 +177,10 @@ int mpc_point_stab_launch(const float* x0g, const float* w, const float* obs, co
 }
 
 // K1's launch for B scenarios at (N, n_alphas) and what the card makes of
-// it, in out[0..5]: lanes a scenario, scenarios a block, dynamic shared
-// memory bytes a block, registers a thread, local memory bytes a thread,
-// resident blocks per SM. Returns a cudaError_t.
+// it (group_solve.cuh group_info); returns a cudaError_t.
 int mpc_point_stab_info(int B, int N, int n_alphas, int* out) {
-  const mpc::Geometry g = mpc::geometry(B, N, n_alphas);
-  if (g.spb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = mpc::kGroup;
-  out[1] = g.spb;
-  out[2] = g.smem_bytes;
-  cudaError_t err = mpc::allow_smem(g.smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, mpc::point_stab_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[3] = attr.numRegs;
-  out[4] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[5], mpc::point_stab_kernel, g.spb * mpc::kGroup, g.smem_bytes));
+  return static_cast<int>(mpc::group_info<mpc::kGroup, mpc::kScenariosPerBlock>(
+      mpc::point_stab_kernel, B, N, n_alphas, out));
 }
 
 // Message of a cudaError_t returned by the entry points of both kernels.

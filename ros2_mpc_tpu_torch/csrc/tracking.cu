@@ -1,21 +1,34 @@
 // K2: whole-solver bank kernel for unicycle trajectory tracking.
 //
 // Replaces the TPU kernel ros2_mpc_tpu/solver/pallas_kernel.py::
-// make_pallas_tracking_solver (its `kernel`, launched by pl.pallas_call).
-// Same schedule as K1 (common.cuh bank_solve) for the tracking formulation:
-// an Euler transition, per-stage x_ref/u_ref windows (stage k against
-// x_ref[k], reference quirk #4), the Gaussian obstacle sum over stages
-// 0..N, an optional terminal pose quadratic against x_ref[N-1], and in
-// corrected mode (wrap_yaw) the yaw error wrapped to (-pi, pi] in the cost,
-// its gradient and the adjoint seed.
+// make_pallas_tracking_solver (its `kernel`, launched by pl.pallas_call):
+// K1's schedule (group_solve.cuh bank_solve_group) for the tracking
+// formulation: an Euler transition, per-stage x_ref/u_ref windows (stage k
+// against x_ref[k], reference quirk #4), the Gaussian obstacle sum over
+// stages 0..N, an optional terminal pose quadratic against x_ref[N-1], and
+// in corrected mode (wrap_yaw) the yaw error wrapped to (-pi, pi] in the
+// cost, its gradient and the adjoint seed.
 //
-// What bounds it on an H100 is what bounds K1 (point_stab.cu): dependent
-// FP32 and SFU latency at one thread per scenario, with 128 warps at the
-// main path's B=4096. The Euler step needs one sin/cos per step instead of
-// RK4's three; the references add 5 coalesced loads per stage. The design
-// is K1's: one thread per scenario, per-scenario exits, structure-of-arrays
-// planes.
-#include "common.cuh"
+// What bounds it on an H100 is what bounds K1 (point_stab.cu): a long chain
+// of dependent FP32 and SFU operations per scenario on a few hundred bytes
+// of input. The Euler step needs one sin/cos per step instead of RK4's three, and
+// the reference windows add 5 loads per stage.
+//
+// What the design does about it is K1's: one scenario on a group of G
+// lanes, the per-stage derivatives one stage per lane and the line-search
+// candidates one step size per lane, the iterate, gains and candidates in
+// shared memory sized at launch from N and n_alphas. The derivative phase
+// reads the reference windows one stage per lane, the candidates the same
+// stage on every lane of a group, so each group first copies its
+// scenario's windows (5N floats) into shared memory ahead of the schedule's
+// scratch: faster than reading them from device memory at 11 of the 12
+// swept geometries (PERF.md). The terminal quadratic is added after the
+// stage terms, and the adjoint seed is terminal_value at X[N], as in the
+// plain version, so K2 stays bit-equal to it. The lanes per scenario and
+// the scenarios per block are compile-time constants fixed by measurement
+// (PERF.md): geometry_sweep.py builds its own libraries with other values
+// through -DMPC_K2_GROUP and -DMPC_K2_SCENARIOS_PER_BLOCK.
+#include "group_solve.cuh"
 
 namespace mpc {
 
@@ -136,48 +149,72 @@ struct TrackingModel {
   }
 };
 
-__global__ void __launch_bounds__(128)
+#ifndef MPC_K2_GROUP
+#define MPC_K2_GROUP 8
+#endif
+#ifndef MPC_K2_SCENARIOS_PER_BLOCK
+#define MPC_K2_SCENARIOS_PER_BLOCK 16
+#endif
+constexpr int kGroup = MPC_K2_GROUP;  // lanes a scenario
+constexpr int kScenariosPerBlock = MPC_K2_SCENARIOS_PER_BLOCK;
+constexpr int kWindowFloats = 5;  // floats a stage of the reference windows
+
+// At most 256 threads a block and one wave of the 4096-scenario bank, as K1.
+__global__ void __launch_bounds__(256, kGroup / 8)
     tracking_kernel(const float* x0, const float* xref, const float* uref, const float* w,
-                    const float* obs, int n_obs, int wrap_yaw, SolveArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const TrackingModel m(x0, xref, uref, w, obs, n_obs, wrap_yaw, a, b);
-  bank_solve(m, a, b);
+                    const float* obs, int n_obs, int wrap_yaw, SolveArgs a, int scenarios_per_block,
+                    int scratch) {
+  extern __shared__ float smem[];
+  const int gi = threadIdx.x / kGroup;
+  const int b = blockIdx.x * scenarios_per_block + gi;
+  if (b >= a.B) return;  // the whole group leaves together
+  float* s = smem + gi * scratch;
+  TrackingModel m(x0, xref, uref, w, obs, n_obs, wrap_yaw, a, b);
+  // the windows go ahead of the schedule's scratch
+  const LaneGroup<kGroup> grp;
+  for (int i = grp.lane; i < 3 * a.N; i += kGroup) s[i] = m.xref[i];
+  for (int i = grp.lane; i < 2 * a.N; i += kGroup) s[3 * a.N + i] = m.uref[i];
+  grp.sync();
+  m.xref = Plane<const float>{s, 1};
+  m.uref = Plane<const float>{s + 3 * a.N, 1};
+  bank_solve_group<TrackingModel, kGroup>(m, a, b, s + kWindowFloats * a.N);
 }
 
 }  // namespace mpc
 
 extern "C" {
 
-// Launch K2 on `stream`; returns the cudaError_t of the launch.
+// Launch K2 on `stream` (one scenario on MPC_K2_GROUP lanes, shared memory
+// sized from N and n_alphas); returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue where one scenario does not fit in a block.
 int mpc_tracking_launch(const float* x0, const float* xref, const float* uref, const float* w,
                         const float* obs, const float* u0, const float* mu, const int* stage,
-                        const int* first, float* U, float* X, float* kff, float* kfb, float* Ubest,
-                        float* cost, float* kkt, int* iters, int* lsro, int B, int N, int n_obs,
-                        int n_iters, int n_alphas, float dt, float lo_v, float hi_v, float lo_w,
-                        float hi_w, float eps_v, float eps_w, float c1, float reg_init,
-                        float reg_min, float reg_max, float stage_tol, int fast_sincos,
-                        int wrap_yaw, int block, void* stream) {
-  const mpc::SolveArgs a = mpc::solve_args(u0, mu, stage, first, U, X, kff, kfb, Ubest, cost, kkt,
-                                           iters, lsro, B, N, n_iters, n_alphas, fast_sincos, dt,
-                                           lo_v, hi_v, lo_w, hi_w, eps_v, eps_w, c1, reg_init,
-                                           reg_min, reg_max, stage_tol);
-  const int grid = (B + block - 1) / block;
-  mpc::tracking_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      x0, xref, uref, w, obs, n_obs, wrap_yaw, a);
+                        const int* first, float* U, float* X, float* cost, float* kkt, int* iters,
+                        int* lsro, int B, int N, int n_obs, int n_iters, int n_alphas, float dt,
+                        float lo_v, float hi_v, float lo_w, float hi_w, float eps_v, float eps_w,
+                        float c1, float reg_init, float reg_min, float reg_max, float stage_tol,
+                        int fast_sincos, int wrap_yaw, void* stream) {
+  const mpc::Geometry g =
+      mpc::geometry<mpc::kGroup, mpc::kScenariosPerBlock, mpc::kWindowFloats>(B, N, n_alphas);
+  if (g.spb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = mpc::allow_smem(mpc::tracking_kernel, g.smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const mpc::SolveArgs a = mpc::solve_args(u0, mu, stage, first, U, X, cost, kkt, iters, lsro, B,
+                                           N, n_iters, n_alphas, fast_sincos, dt, lo_v, hi_v,
+                                           lo_w, hi_w, eps_v, eps_w, c1, reg_init, reg_min,
+                                           reg_max, stage_tol);
+  const int grid = (B + g.spb - 1) / g.spb;
+  mpc::tracking_kernel<<<grid, g.spb * mpc::kGroup, g.smem_bytes,
+                         static_cast<cudaStream_t>(stream)>>>(x0, xref, uref, w, obs, n_obs,
+                                                              wrap_yaw, a, g.spb, g.scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2's registers, local memory bytes and resident blocks per SM at `block`
-// threads (out[0..2]); returns a cudaError_t.
-int mpc_tracking_info(int block, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, mpc::tracking_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], mpc::tracking_kernel, block, 0));
+// K2's launch for B scenarios at (N, n_alphas) and what the card makes of
+// it (group_solve.cuh group_info); returns a cudaError_t.
+int mpc_tracking_info(int B, int N, int n_alphas, int* out) {
+  return static_cast<int>(mpc::group_info<mpc::kGroup, mpc::kScenariosPerBlock, mpc::kWindowFloats>(
+      mpc::tracking_kernel, B, N, n_alphas, out));
 }
 
 }  // extern "C"

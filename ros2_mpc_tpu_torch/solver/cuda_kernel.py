@@ -7,12 +7,11 @@ Armijo line search, barrier continuation) per (8, 128)-scenario tile in
 VMEM. Here it is hand-written CUDA C++ for ``sm_90a`` on structure-of-arrays
 planes ``(..., B)`` with the scenario index minor, any B >= 1:
 
-* K1 (``csrc/point_stab.cu``) runs one scenario on a group of
-  :data:`K1_GROUP` lanes (``csrc/group_solve.cuh``): per-stage derivatives
-  and line-search candidates across lanes, the iterate in shared memory
-  sized from N and n_alphas at launch (:func:`k1_geometry` mirrors it);
-* K2 (``csrc/tracking.cu``) runs one scenario on one thread
-  (``csrc/common.cuh``), :data:`BLOCK` threads a block.
+* K1 (``csrc/point_stab.cu``, point stabilization) and K2
+  (``csrc/tracking.cu``, tracking) run one scenario on a group of lanes
+  (``csrc/group_solve.cuh``): per-stage derivatives and line-search
+  candidates across lanes, the iterate in shared memory sized from N and
+  n_alphas at launch (:func:`group_geometry` mirrors it).
 
 Beside each kernel is its plain PyTorch version, :func:`point_stab_bank_plain`
 and :func:`tracking_bank_plain`: batched code over ``(B,)`` planes that
@@ -45,16 +44,17 @@ import torch
 
 from .ilqr import OCP, Solution, SolverSettings
 
-# K2's threads per block, one scenario per thread (chosen by measurement,
-# PERF.md); also the geometry of roofline.measure_loop_overhead.
-BLOCK = 64
-# K1's lanes per scenario and scenarios per block: compile-time constants of
-# csrc/point_stab.cu (MPC_K1_GROUP, MPC_K1_SCENARIOS_PER_BLOCK), chosen by
-# measurement (PERF.md). The kernel's entry point sizes its launch itself;
-# the wrapper mirrors it (k1_geometry) only to refuse a shape before any
-# build, and kernel_info reads the kernel's own geometry back.
-K1_GROUP = 8
-K1_SCENARIOS_PER_BLOCK = 16
+# Each kernel's lanes per scenario and scenarios per block, compile-time
+# constants of its source (MPC_K1_* in csrc/point_stab.cu, MPC_K2_* in
+# csrc/tracking.cu) chosen by measurement (PERF.md), and the floats a stage
+# it keeps in shared memory ahead of the schedule's scratch (K2's reference
+# windows, kWindowFloats). The kernel's entry point sizes its launch
+# itself; the wrapper mirrors it (group_geometry) only to refuse a shape
+# before any build, and kernel_info reads the kernel's own geometry back.
+GROUP_GEOMETRY = {  # kind: (lanes a scenario, scenarios a block, floats a stage)
+    "point_stab": (8, 16, 0),
+    "tracking": (8, 16, 5),
+}
 # The most dynamic shared memory one block may have on sm_90 (227 KB).
 SMEM_PER_BLOCK = 232_448
 
@@ -433,9 +433,10 @@ def _riccati_step(V, jc, g, reg, dt):
 
 
 def _bank_plain(cfg: BankConfig, m, u0):
-    """The schedule of csrc/common.cuh bank_solve on (B,) planes, with the
-    per-scenario exits as masks. Returns (U (N,2,B), X (N+1,3,B), cost, kkt,
-    iters, ls_rollouts)."""
+    """The bank solve on (B,) planes, one scenario's schedule written as a
+    sequence (a rollout per iteration, the line-search candidates one after
+    another) with the per-scenario exits as masks. Returns (U (N,2,B),
+    X (N+1,3,B), cost, kkt, iters, ls_rollouts)."""
     N, dt = cfg.N, cfg.dt
     lo_v, hi_v, lo_w, hi_w = cfg.lo_v, cfg.hi_v, cfg.lo_w, cfg.hi_w
     # clip bounds in float32 arithmetic, as the kernel forms them
@@ -573,33 +574,35 @@ def tracking_bank_plain(cfg: BankConfig, x0, xref, uref, w, obs, u0):
 # ------------------------------------------------------------------ wrappers
 
 
-def k1_scratch_floats(N: int, n_alphas: int) -> int:
-    """Floats of one scenario's shared scratch in K1, as
-    ``csrc/group_solve.cuh group_scratch_floats``: X, U, kff, kfb, the stage
-    terms, and the larger of the per-stage records (17 floats a stage) and
-    the candidates' controls and states (5N for each of min(K1_GROUP,
-    n_alphas) lanes), made odd."""
-    slots = min(K1_GROUP, n_alphas)
-    return (3 * (N + 1) + 11 * N + max(17 * N, 5 * N * slots)) | 1
+def group_scratch_floats(N: int, n_alphas: int, group: int, extra: int = 0) -> int:
+    """Floats of one scenario's shared scratch on ``group`` lanes, as
+    ``csrc/group_solve.cuh group_scratch_floats``: ``extra`` floats of the
+    kernel's own, X, U, kff, kfb, the stage terms, and the larger of the
+    per-stage records (17 floats a stage) and the candidates' controls and
+    states (5N for each of min(group, n_alphas) lanes), made odd."""
+    slots = min(group, n_alphas)
+    return (extra + 3 * (N + 1) + 11 * N + max(17 * N, 5 * N * slots)) | 1
 
 
-def k1_geometry(B: int, N: int, n_alphas: int) -> dict:
-    """K1's launch for a bank of B scenarios, as ``csrc/point_stab.cu
-    geometry`` computes it: lanes per scenario, scenarios and threads per
-    block, blocks, and dynamic shared memory per block. Fewer scenarios
-    share a block where B or the 227 KB budget asks for it; raises
-    ValueError where one scenario does not fit."""
-    per = 4 * k1_scratch_floats(N, n_alphas)
-    spb = min(K1_SCENARIOS_PER_BLOCK, B, SMEM_PER_BLOCK // per)
+def group_geometry(kind: str, B: int, N: int, n_alphas: int) -> dict:
+    """The launch of kernel ``kind`` (a key of :data:`GROUP_GEOMETRY`) for a
+    bank of B scenarios, as ``csrc/group_solve.cuh geometry`` computes it:
+    lanes per scenario, scenarios and threads per block, blocks, and dynamic
+    shared memory per block. Fewer scenarios share a block where B or the
+    227 KB budget asks for it; raises ValueError where one scenario does not
+    fit."""
+    group, most, per_stage = GROUP_GEOMETRY[kind]
+    per = 4 * group_scratch_floats(N, n_alphas, group, per_stage * N)
+    spb = min(most, B, SMEM_PER_BLOCK // per)
     if spb < 1:
         raise ValueError(
-            f"K1 needs {per} bytes of shared memory for one scenario at N={N}, n_alphas={n_alphas} "
-            f"(lanes {K1_GROUP}), more than the {SMEM_PER_BLOCK} a block may have"
+            f"the {kind} kernel needs {per} bytes of shared memory for one scenario at N={N}, "
+            f"n_alphas={n_alphas} (lanes {group}), more than the {SMEM_PER_BLOCK} a block may have"
         )
     return {
-        "group": K1_GROUP,
+        "group": group,
         "scenarios_per_block": spb,
-        "threads": spb * K1_GROUP,
+        "threads": spb * group,
         "blocks": -(-B // spb),
         "smem_bytes": spb * per,
     }
@@ -692,17 +695,14 @@ class CudaBankSolver:
         for p in planes:
             if p.dtype != _F32 or not p.is_contiguous():
                 raise ValueError("kernel inputs must be contiguous float32")
-        if self.kind == "point_stab":
-            k1_geometry(B, c.N, c.n_alphas)  # raises before any build
+        group_geometry(self.kind, B, c.N, c.n_alphas)  # raises before any build
         lib = _build.load_library()
         empty = lambda *s, dtype=_F32: torch.empty(*s, dtype=dtype, device=dev)  # noqa: E731
         U, X = empty(c.N, 2, B), empty(c.N + 1, 3, B)
         cost, kkt = empty(B), empty(B)
         iters, lsro = empty(B, dtype=torch.int32), empty(B, dtype=torch.int32)
         mu, stage, first = self._schedule(dev)
-        # K2 keeps its scratch in device memory; K1 in shared memory
-        scratch = () if self.kind == "point_stab" else (empty(c.N, 2, B), empty(c.N, 2, 3, B), empty(c.N, 2, B))
-        ptrs = [p.data_ptr() for p in (*planes, mu, stage, first, U, X, *scratch, cost, kkt, iters, lsro)]
+        ptrs = [p.data_ptr() for p in (*planes, mu, stage, first, U, X, cost, kkt, iters, lsro)]
         sched = [
             B, c.N, n_obs, len(c.mus), c.n_alphas,
             c.dt, c.lo_v, c.hi_v, c.lo_w, c.hi_w, c.eps_v, c.eps_w,
@@ -713,9 +713,7 @@ class CudaBankSolver:
             if self.kind == "point_stab":
                 err = lib.mpc_point_stab_launch(*ptrs, *sched, int(c.fast_sincos), stream)
             else:
-                err = lib.mpc_tracking_launch(
-                    *ptrs, *sched, int(c.fast_sincos), int(c.wrap_yaw), BLOCK, stream
-                )
+                err = lib.mpc_tracking_launch(*ptrs, *sched, int(c.fast_sincos), int(c.wrap_yaw), stream)
         if err != 0:
             raise RuntimeError(f"{self.kind} kernel launch failed: {lib.mpc_error_string(err).decode()}")
         self.launches += 1
@@ -750,25 +748,20 @@ class CudaBankSolver:
         return self._finish(self._plain(self._pack(thetas, U0s)))
 
     def kernel_info(self, B: int = 4096) -> dict:
-        """Registers, local memory and resident blocks per SM of the kernel
-        at its geometry for a bank of B scenarios; for K1 also that geometry
-        as its entry point computes it (the keys of :func:`k1_geometry`) and
-        ptxas's spill stores. Builds the kernels; needs a CUDA device."""
+        """The kernel's geometry for a bank of B scenarios as its entry point
+        computes it (the keys of :func:`group_geometry`), its registers,
+        local memory and resident blocks per SM there, and ptxas's spill
+        stores. Builds the kernels; needs a CUDA device."""
         from .. import _build
 
-        if self.kind == "point_stab":
-            k1_geometry(B, self.cfg.N, self.cfg.n_alphas)  # raises before any build
+        c = self.cfg
+        group_geometry(self.kind, B, c.N, c.n_alphas)  # raises before any build
         lib = _build.load_library()
         out = (ctypes.c_int * 6)()
-        ptr = ctypes.cast(out, ctypes.c_void_p)
-        if self.kind == "point_stab":
-            err = lib.mpc_point_stab_info(B, self.cfg.N, self.cfg.n_alphas, ptr)
-        else:
-            err = lib.mpc_tracking_info(BLOCK, ptr)
+        info = lib.mpc_point_stab_info if self.kind == "point_stab" else lib.mpc_tracking_info
+        err = info(B, c.N, c.n_alphas, ctypes.cast(out, ctypes.c_void_p))
         if err != 0:
             raise RuntimeError(f"{self.kind} kernel info failed: {lib.mpc_error_string(err).decode()}")
-        if self.kind != "point_stab":
-            return {"threads": BLOCK, "registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
         group, spb, smem, regs, local, per_sm = out
         return {
             "group": group,
@@ -779,7 +772,7 @@ class CudaBankSolver:
             "registers": regs,
             "local_bytes": local,
             "blocks_per_sm": per_sm,
-            "spill_stores": _build.spill_stores("point_stab_kernel"),
+            "spill_stores": _build.spill_stores(f"{self.kind}_kernel"),
         }
 
 

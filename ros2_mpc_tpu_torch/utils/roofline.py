@@ -7,8 +7,8 @@ pieces:
    runs long dependent chains of FMAs, ``exp``, ``log`` or paired sin/cos per
    element, built beside K1 and K2 under their flags, and gives this card's
    rate for each op class as the solver kernels execute it.
-   :func:`measure_loop_overhead` measures one loop trip at K2's geometry
-   (one thread per scenario).
+   :func:`measure_loop_overhead` measures one loop trip in 64-thread
+   blocks, one chain per thread.
 
 2. **Analytic op counts** (:func:`point_stab_solve_flops`,
    :func:`tracking_solve_flops`, ...): the per-scenario written-op ledgers
@@ -350,6 +350,10 @@ CHAIN_UNROLLS = (1, 16)  # the inner-loop lengths K3 is compiled for
 # per SM, short of those 16.)
 CHAIN_BLOCK = 256
 PEAK_ROWS, PEAK_COLS = 1056, 256
+# measure_loop_overhead's threads a block: the one-thread-per-scenario
+# geometry the bank kernels were first built with, kept so that its number
+# stays comparable with the earlier measurements in PERF.md
+LOOP_BLOCK = 64
 # The fma map's constants as the kernel's float literals round them.
 _FMA_A = float(np.float32(1.0000001))
 _FMA_B = float(np.float32(1e-9))
@@ -502,22 +506,19 @@ def measure_loop_overhead(
     cols: int = 128,
     device=None,
 ) -> float:
-    """Measured per-trip overhead (seconds) of a loop in a kernel at the
-    one-thread-per-scenario geometry of K2: ``rows * cols`` elements
-    (default 4096, the bank) in blocks of ``cuda_kernel.BLOCK`` (64)
-    threads.
+    """Measured per-trip overhead (seconds) of a loop in a kernel with one
+    dependent chain per thread: ``rows * cols`` elements (default 4096, the
+    bank size) in blocks of :data:`LOOP_BLOCK` (64) threads.
 
     Method: the FMA chain at ``unroll=16`` measures the FMA rate; the same
     chain at ``unroll=1`` pays one loop trip (counter, compare, branch) per
     FMA. The per-trip difference is the loop overhead. Feeds the gap
     decomposition: solver loop trips x this number = modelled control-flow
     seconds. ``device`` as in :func:`measure_vpu_peaks`."""
-    from ..solver.cuda_kernel import BLOCK
-
     dev = resolve_device(device)
     n_steps = 16384 if dev.type == "cuda" else 64
-    rate16 = _chain_rate("fma", rows, cols, n_steps, 16, dev, block=BLOCK)
-    rate1 = _chain_rate("fma", rows, cols, n_steps * 16, 1, dev, block=BLOCK)
+    rate16 = _chain_rate("fma", rows, cols, n_steps, 16, dev, block=LOOP_BLOCK)
+    rate1 = _chain_rate("fma", rows, cols, n_steps * 16, 1, dev, block=LOOP_BLOCK)
     numel = rows * cols
     per_trip_1 = numel / rate1  # seconds per unroll=1 trip (1 FMA + overhead)
     per_fma = numel / rate16  # seconds per FMA inside an unrolled body

@@ -9,11 +9,11 @@ cost rtol 1e-3, the chunk-edge bank 2e-4 / 2e-4. The TPU kernel exits per
 bands. The CUDA kernels themselves run only on the card (the `cuda`
 marker): there they are held against the plain versions.
 
-K1 runs one scenario on a group of lanes with a speculative line search
-(csrc/group_solve.cuh). Its launch geometry is plain Python, tested here,
-and so is the equivalence its bit-equality rests on: a transcription of
-the group schedule on the plain version's model classes reproduces
-``_bank_plain`` bit for bit.
+K1 and K2 run one scenario on a group of lanes with a speculative line
+search (csrc/group_solve.cuh). Their launch geometry is plain Python,
+tested here, and so is the equivalence their bit-equality rests on: a
+transcription of the group schedule on the plain version's model classes
+reproduces ``_bank_plain`` bit for bit.
 """
 
 import jax
@@ -233,51 +233,84 @@ def test_spill_stores_are_read_per_kernel(monkeypatch, tmp_path):
         _build.spill_stores("chain_kernel")
 
 
-def test_k1_constants_mirror_the_kernel_source():
+# kind: (source, prefix of its geometry macros)
+GROUP_KERNELS = {"point_stab": ("point_stab.cu", "MPC_K1"), "tracking": ("tracking.cu", "MPC_K2")}
+
+
+@pytest.mark.parametrize("kind", sorted(GROUP_KERNELS))
+def test_group_constants_mirror_the_kernel_source(kind):
     """The wrapper's pre-build check uses the kernel's own constants."""
-    src = (_build.CSRC / "point_stab.cu").read_text()
-    assert f"#define MPC_K1_GROUP {ck.K1_GROUP}\n" in src
-    assert f"#define MPC_K1_SCENARIOS_PER_BLOCK {ck.K1_SCENARIOS_PER_BLOCK}\n" in src
-    assert f"kMaxSmemBytes = {ck.SMEM_PER_BLOCK};" in src
-    group = (_build.CSRC / "group_solve.cuh").read_text()
-    assert "return (3 * (N + 1) + 11 * N + (recs > cands ? recs : cands)) | 1;" in group
-    assert "recs = 17 * N, cands = 5 * N * slots;" in group
+    source, macro = GROUP_KERNELS[kind]
+    group, spb, per_stage = ck.GROUP_GEOMETRY[kind]
+    src = (_build.CSRC / source).read_text()
+    assert f"#define {macro}_GROUP {group}\n" in src
+    assert f"#define {macro}_SCENARIOS_PER_BLOCK {spb}\n" in src
+    if kind == "tracking":  # the reference windows, 5 floats a stage
+        assert f"kWindowFloats = {per_stage};" in src
+        assert "geometry<mpc::kGroup, mpc::kScenariosPerBlock, mpc::kWindowFloats>(" in src
+        assert "bank_solve_group<TrackingModel, kGroup>(m, a, b, s + kWindowFloats * a.N)" in src
+    else:
+        assert per_stage == 0 and "geometry<mpc::kGroup, mpc::kScenariosPerBlock>(" in src
+        assert "bank_solve_group<PointStabModel, kGroup>" in src
+    shared = (_build.CSRC / "group_solve.cuh").read_text()
+    assert f"kMaxSmemBytes = {ck.SMEM_PER_BLOCK};" in shared
+    assert "return (extra + 3 * (N + 1) + 11 * N + (recs > cands ? recs : cands)) | 1;" in shared
+    assert "g.scratch = group_scratch_floats(N, n_alphas, G, PerStage * N);" in shared
+    assert "recs = 17 * N, cands = 5 * N * slots;" in shared
 
 
+@pytest.mark.parametrize("kind", sorted(GROUP_KERNELS))
 @pytest.mark.parametrize(
     "B,N,n_alphas", [(1, 20, 10), (4096, 20, 10), (1, 30, 6), (4096, 30, 6), (13, 20, 10)],
     ids=["B1", "headline", "tick", "bank_N30", "ragged"],
 )
-def test_k1_geometry_covers_bank_and_tick(B, N, n_alphas):
-    geo = ck.k1_geometry(B, N, n_alphas)
+def test_group_geometry_covers_bank_and_tick(kind, B, N, n_alphas):
+    geo = ck.group_geometry(kind, B, N, n_alphas)
     spb, G = geo["scenarios_per_block"], geo["group"]
-    assert G == ck.K1_GROUP and spb == min(ck.K1_SCENARIOS_PER_BLOCK, B)
-    assert geo["threads"] == spb * G <= 256  # K1's __launch_bounds__
+    group, most, per_stage = ck.GROUP_GEOMETRY[kind]
+    assert (G, spb) == (group, min(most, B))
+    assert geo["threads"] == spb * G <= 256  # the kernels' __launch_bounds__
     assert (geo["blocks"] - 1) * spb < B <= geo["blocks"] * spb  # every scenario, no empty block
-    per = ck.k1_scratch_floats(N, n_alphas)
+    per = ck.group_scratch_floats(N, n_alphas, G, per_stage * N)
     assert per % 2 == 1  # odd stride: a warp's groups read different banks
-    # X, U, kff, kfb, stage terms, and the candidates' slots or the records
-    assert per >= 3 * (N + 1) + 11 * N + max(17 * N, 5 * N * min(G, n_alphas))
+    # the kernel's own floats, X, U, kff, kfb, stage terms, and the
+    # candidates' slots or the records
+    assert per >= per_stage * N + 3 * (N + 1) + 11 * N + max(17 * N, 5 * N * min(G, n_alphas))
     assert geo["smem_bytes"] == 4 * spb * per <= ck.SMEM_PER_BLOCK
 
 
-def test_k1_geometry_fits_scenarios_to_the_shared_memory_budget():
-    per = 4 * ck.k1_scratch_floats(600, 10)
-    geo = ck.k1_geometry(4096, 600, 10)
-    assert geo["scenarios_per_block"] == ck.SMEM_PER_BLOCK // per < ck.K1_SCENARIOS_PER_BLOCK
+@pytest.mark.parametrize("kind", sorted(GROUP_KERNELS))
+def test_group_geometry_fits_scenarios_to_the_shared_memory_budget(kind):
+    group, most, per_stage = ck.GROUP_GEOMETRY[kind]
+    per = 4 * ck.group_scratch_floats(600, 10, group, per_stage * 600)
+    geo = ck.group_geometry(kind, 4096, 600, 10)
+    assert geo["scenarios_per_block"] == ck.SMEM_PER_BLOCK // per < most
     with pytest.raises(ValueError, match="shared memory"):
-        ck.k1_geometry(1, 2000, 10)
+        ck.group_geometry(kind, 1, 2000, 10)
 
 
-def test_k1_wrapper_raises_beyond_shared_memory_before_any_build(monkeypatch):
+def _big_bank(kind):
+    """A bank solver at N=2000, beyond the shared-memory budget, and its
+    inputs for B=2."""
+    if kind == "point_stab":
+        tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, device="cpu")
+        th = torch.func.vmap(tprob.make_theta)(torch.zeros(2, 3), torch.ones(2, 3))
+        small = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST)
+    else:
+        tprob = ts.make_tracking(T_PARAMS, horizon=N, settings=T_FAST, reference_parity=False, device="cpu")
+        th = torch.func.vmap(tprob.make_theta)(torch.zeros(2, 3), torch.zeros(2, N, 3), torch.zeros(2, N, 2))
+        th = dict(th, x_ref=torch.zeros(2, 2000, 3), u_ref=torch.zeros(2, 2000, 2))
+        small = ck.make_cuda_tracking_solver(tprob.ocp, T_FAST)
+    return ck.CudaBankSolver(kind, small.cfg._replace(N=2000), False), th
+
+
+@pytest.mark.parametrize("kind", sorted(GROUP_KERNELS))
+def test_group_wrapper_raises_beyond_shared_memory_before_any_build(monkeypatch, kind):
     def no_build():
         raise AssertionError("the kernels were built")
 
     monkeypatch.setattr(_build, "load_library", no_build)
-    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, settings=T_FAST, device="cpu")
-    small = ck.make_cuda_point_stab_solver(tprob.ocp, T_FAST)
-    big = ck.CudaBankSolver("point_stab", small.cfg._replace(N=2000), False)
-    th = torch.func.vmap(tprob.make_theta)(torch.zeros(2, 3), torch.ones(2, 3))
+    big, th = _big_bank(kind)
     with pytest.raises(ValueError, match="more than the 232448"):
         big._launch(big._pack(th, torch.zeros(2, 2000, 2)))
     with pytest.raises(ValueError, match="shared memory"):
@@ -394,13 +427,9 @@ def _group_schedule(cfg, m, u0):
     return U, X, Jtrue, kkt, iters, lsro
 
 
-@pytest.mark.parametrize("parity", [True, False], ids=["parity", "obstacle_active"])
-def test_speculative_line_search_reproduces_first_accept(parity):
-    """The equivalence K1's lane groups rest on, on a B=64, N=20 bank with
-    the default schedule: the group schedule gives _bank_plain's U, X,
-    cost, KKT residual, iters and ls_rollouts bit for bit."""
-    Bn, Nh = 64, 20
-    rng = np.random.default_rng(11)
+def _point_line_search_bank(rng, Bn, Nh, parity):
+    """(cfg, model, u0) of K1 on a headline-like bank; corrected mode adds
+    three live points near each start-goal line."""
     x0 = rng.uniform(-0.3, 0.3, size=(Bn, 3))
     goal = np.concatenate([rng.uniform(-1.5, 1.5, size=(Bn, 2)), rng.uniform(-np.pi, np.pi, size=(Bn, 1))], axis=1)
     settings = ts.SolverSettings()
@@ -414,9 +443,55 @@ def test_speculative_line_search_reproduces_first_accept(parity):
         args += [torch.tensor(ox, dtype=torch.float32), torch.tensor(oy, dtype=torch.float32)]
     solver = ck.make_cuda_point_stab_solver(prob.ocp, settings, with_counters=True)
     x0g, w, obs, u0 = solver._pack(torch.func.vmap(prob.make_theta)(*args), torch.zeros(Bn, Nh, 2))
-    model = ck._PointStabModel(solver.cfg, x0g, w, obs)
-    ref = ck._bank_plain(solver.cfg, model, u0)
-    got = _group_schedule(solver.cfg, model, u0)
+    return solver.cfg, ck._PointStabModel(solver.cfg, x0g, w, obs), u0
+
+
+def _tracking_line_search_bank(rng, Bn, Nh, wrap, terminal_weight, yaw0, yaw_ref):
+    """(cfg, model, u0) of K2 on straight references at 0.15 m/s with one
+    live obstacle near each line, starting at heading ``yaw0`` (an interval)
+    against a reference heading ``yaw_ref``."""
+    x0 = np.concatenate([rng.uniform(-0.2, 0.2, size=(Bn, 2)), rng.uniform(*yaw0, size=(Bn, 1))], axis=1)
+    t = np.arange(1, Nh + 1) * T_PARAMS.dt
+    x_ref = np.stack([x0[:, 0:1] + 0.15 * t[None], np.zeros((Bn, Nh)), np.full((Bn, Nh), yaw_ref)], axis=2)
+    u_ref = np.tile([0.15, 0.0], (Bn, Nh, 1))
+    ox, oy = np.full((Bn, N_OBS), 100.0), np.full((Bn, N_OBS), 100.0)
+    ox[:, 0], oy[:, 0] = rng.uniform(0.3, 0.6, size=Bn), rng.uniform(-0.15, 0.15, size=Bn)
+    settings = ts.SolverSettings()
+    prob = ts.make_tracking(
+        T_PARAMS, horizon=Nh, settings=settings, reference_parity=False, terminal_weight=terminal_weight, device="cpu"
+    )
+    args = [torch.tensor(a, dtype=torch.float32) for a in (x0, x_ref, u_ref, ox, oy)]
+    solver = ck.make_cuda_tracking_solver(prob.ocp, settings, with_counters=True, wrap_yaw=wrap)
+    assert solver.cfg.wrap_yaw == wrap
+    x0p, xref, uref, w, obs, u0 = solver._pack(torch.func.vmap(prob.make_theta)(*args), torch.zeros(Bn, Nh, 2))
+    return solver.cfg, ck._TrackingModel(solver.cfg, x0p, xref, uref, w, obs), u0
+
+
+LINE_SEARCH_BANKS = {
+    "parity": lambda rng, Bn, Nh: _point_line_search_bank(rng, Bn, Nh, True),
+    "obstacle_active": lambda rng, Bn, Nh: _point_line_search_bank(rng, Bn, Nh, False),
+    # headings near +pi against a reference near -pi: the wrap decides the error
+    "tracking_wrap": lambda rng, Bn, Nh: _tracking_line_search_bank(rng, Bn, Nh, True, (0.0,) * 3, (2.8, 3.4), -3.0),
+    "tracking_no_wrap": lambda rng, Bn, Nh: _tracking_line_search_bank(
+        rng, Bn, Nh, False, (0.0,) * 3, (2.8, 3.4), -3.0
+    ),
+    "tracking_terminal_obstacle": lambda rng, Bn, Nh: _tracking_line_search_bank(
+        rng, Bn, Nh, True, (10.0, 10.0, 1.0), (-0.2, 0.2), 0.0
+    ),
+}
+
+
+@pytest.mark.parametrize("bank", list(LINE_SEARCH_BANKS))
+def test_speculative_line_search_reproduces_first_accept(bank):
+    """The equivalence K1's and K2's lane groups rest on, on a B=64, N=20
+    bank with the default schedule: the group schedule gives _bank_plain's
+    U, X, cost, KKT residual, iters and ls_rollouts bit for bit. The
+    tracking banks take the yaw wrap (on and off), the terminal quadratic
+    and the adjoint seed through the same schedule."""
+    Bn, Nh = 64, 20
+    cfg, model, u0 = LINE_SEARCH_BANKS[bank](np.random.default_rng(11), Bn, Nh)
+    ref = ck._bank_plain(cfg, model, u0)
+    got = _group_schedule(cfg, model, u0)
     for name, a, b in zip(("U", "X", "cost", "kkt", "iters", "ls_rollouts"), got, ref):
         assert torch.equal(a, b), name
     iters, ls = ref[4], ref[5]
@@ -455,5 +530,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     k2 = ck.make_cuda_tracking_solver(tprob2.ocp, T_FAST, with_counters=True)
     th2 = theta_from_numpy(thetas2, cuda_device)
     _assert_bit_equal(k2(th2, U0), k2.plain(th2, U0))
+    one2 = {k: v[:1] for k, v in th2.items()}
+    _assert_bit_equal(k2(one2, U0[:1]), k2.plain(one2, U0[:1]))
     torch.cuda.synchronize()
-    assert (k1.launches, k2.launches) == (2, 1)
+    assert (k1.launches, k2.launches) == (2, 2)
