@@ -18,7 +18,16 @@ runs the main path through the entry points a user calls:
   (``make_packed_point_stab``) with K1 at B=1 as its engine;
 * 5 warm-started ticks of the packed path follower
   (``make_packed_tracking``: corrected mode, realtime schedule, N=30, a
-  straight reference at 0.15 m/s advanced one step a tick) with K2 at B=1.
+  straight reference at 0.15 m/s advanced one step a tick) with K2 at B=1;
+* the closed loop, ``run_sim_stack``'s scenario through
+  ``nodes.launch.build_sim_stack`` and ``SimStack.run_to_goal`` for both
+  followers (the synthetic 250x250 indoor map at 0.05 m, a 360-beam lidar,
+  ``Params()``, horizon 20, start (-1, -1, 0), goal (1, -1), at most 200
+  ticks): the point follower on K1 at B=1, the path follower on K2 at B=1
+  and its goal handoff on K1 at B=1, N=40. Each must reach the goal within
+  0.75-1.5x the JAX package's tick count, launch its kernel on every solve,
+  and its first 5 solves of each path must be bit-equal to the plain
+  versions; then a tick with a NaN goal must neither raise nor hang.
 
 K1 and K2 run one scenario on a group of lanes; each geometry line is the
 kernel's own, and the wrapper's pre-build mirror of it must agree. Each
@@ -82,6 +91,15 @@ FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 CHAIN_MAX_ULP = 0
 CHAIN_GEOMETRIES = ((1056, 256, 256), (32, 128, 64))
 MAX_SHARE = 1.05  # a share of a bound above this means a counting fault
+# The closed loop: run_sim_stack's scenario. The JAX package's ticks to the
+# goal in the same scenario (its nodes.launch.build_sim_stack on the CPU,
+# make_solver as the followers' engine): point 62, tracking 53. The port's
+# count must lie within LOOP_TICK_BAND of them.
+LOOP_HORIZON, LOOP_START, LOOP_GOAL, LOOP_MAX_TICKS = 20, (-1.0, -1.0, 0.0), (1.0, -1.0), 200
+JAX_LOOP_TICKS = {"point": 62, "tracking": 53}
+LOOP_TICK_BAND = (0.75, 1.5)
+LOOP_RECHECK = 5  # solves of each path re-solved through the plain version
+NAN_TICK_S = 30.0  # a NaN-goal tick that takes longer has hung
 
 
 def headline_bank(rng, B):
@@ -276,6 +294,136 @@ def tick_paths(inp, k1_tick, k2_tick):
     }
 
 
+class Recorder:
+    """Wraps a follower's packed solve: counts its calls, keeps the inputs
+    and Solution of the first ``keep`` and the last Solution."""
+
+    def __init__(self, solve, keep=5):
+        self.solve, self.keep, self.calls, self.kept, self.last = solve, keep, 0, [], None
+
+    def __call__(self, vec, U0):
+        sol, U_next = self.solve(vec, U0)
+        self.calls += 1
+        self.last = sol
+        if len(self.kept) < self.keep:
+            self.kept.append((vec, U0, sol))
+        return sol, U_next
+
+
+def closed_loop(dev, follower):
+    """The flagship flow through ``build_sim_stack``: the synthetic indoor
+    map, 360-beam lidar, ``Params()``, horizon 20 (the handoff 40), start
+    (-1, -1, 0), goal (1, -1), at most 200 ticks; the follower's engines'
+    launch counters zeroed just before the run. Returns (stack, {path name:
+    (engine, Recorder, plain packed solve)}, reached, ticks, pose)."""
+    from ros2_mpc_tpu_torch.nodes.launch import build_sim_stack
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import single_scenario
+    from ros2_mpc_tpu_torch.solver.packed import make_packed_point_stab, make_packed_tracking
+
+    stack = build_sim_stack(follower=follower, horizon=LOOP_HORIZON, start_pose=LOOP_START, device=dev)
+    f, params = stack.follower, stack.params
+    if follower == "point":
+        paths = {"K1 point": (f.engine, f.problem, make_packed_point_stab, "_solve")}
+    else:
+        paths = {
+            "K2 tracking": (f.engine, f.problem, make_packed_tracking, "_solve"),
+            "K1 handoff": (f.handoff_engine, f._point_problem, make_packed_point_stab, "_point_solve"),
+        }
+    out = {}
+    for name, (engine, problem, make_packed, attr) in paths.items():
+        rec = Recorder(getattr(f, attr), keep=LOOP_RECHECK)
+        setattr(f, attr, rec)
+        plain = make_packed(problem, params, solve_fn=single_scenario(engine.plain))[0]
+        out[name] = (engine, rec, plain)
+    for engine, _, _ in out.values():
+        engine.launches = 0
+    reached, ticks, pose = stack.run_to_goal(LOOP_GOAL, max_ticks=LOOP_MAX_TICKS)
+    return stack, out, reached, ticks, pose
+
+
+def closed_loop_phase(dev, card):
+    """Both followers through ``closed_loop``, each follower's engines'
+    counters zeroed just before its run and read just after; raises unless
+    each reaches the goal within LOOP_TICK_BAND of the JAX package's ticks,
+    launches its kernel on every solve, its first solves are bit-equal to
+    the plain versions, and a NaN-goal tick degrades gracefully. Returns
+    ({"K1": launches, "K2": launches}, max |dU| against the plain version)."""
+    import torch
+
+    from ros2_mpc_tpu_torch.planner import native
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import group_geometry
+
+    loop_launches, loop_err = {"K1": 0, "K2": 0}, 0.0
+    for follower in ("point", "tracking"):
+        t0 = time.perf_counter()
+        stack, loop_paths, reached, ticks, pose = closed_loop(dev, follower)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        f = stack.follower
+        solves = len(f.telemetry.series["solve_s"])
+        sp, tp = f.telemetry.percentiles("solve_s"), stack.telemetry.percentiles("tick_s")
+        stages = {
+            k: round(stack.telemetry.percentiles(f"{k}_s")["p50"] * 1e3, 3)
+            for k in ("costmap", "plan", "control", "plant")
+        }
+        launched = {name: e.launches for name, (e, _, _) in loop_paths.items()}
+        calls = {name: rec.calls for name, (_, rec, _) in loop_paths.items()}
+        print(
+            f"closed loop {follower} (horizon {LOOP_HORIZON}, start {LOOP_START}, goal {LOOP_GOAL}): reached "
+            f"{reached}, ticks {ticks} (JAX package {JAX_LOOP_TICKS[follower]}), final pose "
+            f"{np.round(pose, 3).tolist()}; {solves} solves, solve p50 {sp['p50'] * 1e3:.3f} ms p99 "
+            f"{sp['p99'] * 1e3:.3f} ms; stack tick p50 {tp['p50'] * 1e3:.3f} ms p99 {tp['p99'] * 1e3:.3f} ms "
+            f"(host clock; stage p50 {stages}); launches {launched} for solves {calls}; wall {wall:.1f} s -- {card}",
+            flush=True,
+        )
+        lo, hi = (b * JAX_LOOP_TICKS[follower] for b in LOOP_TICK_BAND)
+        if not reached or not lo <= ticks <= hi:
+            raise AssertionError(f"closed loop {follower}: reached {reached} in {ticks} ticks, band [{lo}, {hi}]")
+        if sum(calls.values()) != solves or any(launched[n] < c or c == 0 for n, c in calls.items()):
+            raise AssertionError(f"closed loop {follower}: launches {launched} for solves {calls} of {solves}")
+        for name, (engine, rec, plain) in loop_paths.items():
+            loop_launches[name[:2]] += launched[name]
+            unequal = []
+            for i, (vec, U_in, sol) in enumerate(rec.kept):
+                ref, _ = plain(vec, U_in)
+                loop_err = max(loop_err, float((sol.U - ref.U).abs().max()))
+                fields = ("U", "X", "cost", "kkt_residual", "n_iters")
+                unequal += [f"solve {i} {k}" for k in fields if not torch.equal(getattr(sol, k), getattr(ref, k))]
+            print(
+                f"closed loop {follower} {name} (N={engine.cfg.N}): first {len(rec.kept)} solves bit-equal "
+                f"to the plain version {'yes' if not unequal else unequal}"
+            )
+            if unequal:
+                raise AssertionError(f"closed loop {follower} {name}: {unequal}")
+            if name == "K1 handoff":  # the 2N geometry at B=1
+                info = engine.kernel_info(1)
+                print(f"K1 handoff (B=1, N={engine.cfg.N}): {info}", flush=True)
+                mirror = group_geometry("point_stab", 1, engine.cfg.N, engine.cfg.n_alphas)
+                if {k: info[k] for k in mirror} != mirror:
+                    raise AssertionError(f"K1 handoff: group_geometry {mirror} is not the kernel's geometry")
+        # one tick with a NaN goal: no raise, no hang, a finite command, and
+        # the last one where the solve came back non-finite
+        u_before, calls_before = f.u_last.copy(), dict(calls)
+        stack.publish_goal(float("nan"), 0.0)
+        t0 = time.perf_counter()
+        out = f.tick()
+        nan_s = time.perf_counter() - t0
+        cmd = stack.bus.latest(f.cmd_vel_publisher.topic)[0]
+        ran = [rec for n, (_, rec, _) in loop_paths.items() if rec.calls > calls_before[n]]
+        solve_finite = bool(torch.isfinite(ran[0].last.U[0]).all()) if ran else None
+        command = np.array([cmd.linear_x, cmd.angular_z])
+        print(
+            f"closed loop {follower} NaN goal: tick {nan_s * 1e3:.1f} ms, status {out['status']}, solve U[0] "
+            f"finite {solve_finite}, command {command.tolist()}, u {np.asarray(out.get('u')).tolist()}"
+        )
+        if nan_s > NAN_TICK_S or not np.isfinite(command).all() or not np.isfinite(out.get("u", np.nan)).all():
+            raise AssertionError(f"closed loop {follower}: the NaN-goal tick did not degrade gracefully")
+        if solve_finite is False and not np.array_equal(out["u"], u_before):
+            raise AssertionError(f"closed loop {follower}: a non-finite solve did not fall back to the last command")
+    print(f"closed loop: A* {'native (native/astar.cpp)' if native.load() is not None else 'Python (planner/astar_py.py)'}")
+    return loop_launches, loop_err
+
+
 def main_path_inputs(dev):
     """The main path's problems and inputs, all from seeded generators as
     bench.py builds them: the headline, obstacle-active and tracking banks
@@ -453,6 +601,9 @@ def main() -> int:
     if conv < 0.95:
         raise AssertionError(f"headline bank converged fraction {conv}")
 
+    # ---- the closed loop, run_sim_stack's scenario, for both followers
+    loop_launches, loop_err = closed_loop_phase(dev, card)
+
     # ---- K1 against the algorithmic reference (make_solver, CPU), small
     fast = SolverSettings.fast()
     prob_ref = make_point_stabilization(params, horizon=N, reference_parity=False, settings=fast, device="cpu")
@@ -629,8 +780,8 @@ def main() -> int:
             "route": "cuda",
             "source": "ros2_mpc_tpu_torch/csrc/point_stab.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:119",
-            "launches": launches["K1"],
-            "max_abs_err": max(err1, tick_errs["K1 tick"]),
+            "launches": launches["K1"] + loop_launches["K1"],
+            "max_abs_err": max(err1, tick_errs["K1 tick"], loop_err),
             "ms": times["K1"][0],
             "plain_ms": times["K1"][1],
             "bound_ms": bounds["K1 headline"][0],
@@ -642,8 +793,8 @@ def main() -> int:
             "route": "cuda",
             "source": "ros2_mpc_tpu_torch/csrc/tracking.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:769",
-            "launches": launches["K2"],
-            "max_abs_err": max(err2, tick_errs["K2 tick"]),
+            "launches": launches["K2"] + loop_launches["K2"],
+            "max_abs_err": max(err2, tick_errs["K2 tick"], loop_err),
             "ms": times["K2"][0],
             "plain_ms": times["K2"][1],
             "bound_ms": bounds["K2 tracking"][0],

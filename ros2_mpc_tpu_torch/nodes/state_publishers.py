@@ -1,0 +1,54 @@
+"""State/tf publisher nodes — the port's own copy of
+:mod:`ros2_mpc_tpu.nodes.state_publishers`, behavior-parity rebuilds of
+ros2_mpc/core/robot_state_publisher.py:11-79 (tf map->base_footprint lookup
+republished as /robot_position Odometry at 20 Hz) and
+ros2_mpc/core/transform_publisher.py:11-39 (map->odom broadcast with the
+reference's *negated* translation, quirk #7)."""
+
+from __future__ import annotations
+
+from .bus import MessageBus, Odometry, Pose, Transform
+
+
+class RobotStatePublisherNode:
+    """tf(map -> base_footprint) -> /robot_position. In the simulator stack
+    the tf frame is set by whoever owns ground truth; a missing transform
+    skips the tick exactly like the reference's TransformException handler
+    (robot_state_publisher.py:29-32)."""
+
+    def __init__(self, bus: MessageBus):
+        self.bus = bus
+
+    def tick(self) -> dict:
+        trans = self.bus.lookup_transform("map", "base_footprint")
+        if trans is None:
+            return {"status": "no_transform"}
+        self.bus.publish(
+            "/robot_position",
+            Odometry(pose=Pose(x=trans.x, y=trans.y, orientation=trans.orientation)),
+        )
+        return {"status": "published"}
+
+
+class TransformPublisherNode:
+    """/odom -> broadcast map->odom with negated translation
+    (transform_publisher.py:25-28, preserved quirk #7)."""
+
+    def __init__(self, bus: MessageBus):
+        self.bus = bus
+        self.broadcasts = 0
+        bus.subscribe("/odom", self._odom_callback)
+
+    def _odom_callback(self, msg: Odometry):
+        self.broadcasts += 1
+        self.bus.set_transform(
+            "map",
+            "odom",
+            Transform(x=-msg.pose.x, y=-msg.pose.y, orientation=msg.pose.orientation),
+        )
+
+    def tick(self) -> dict:
+        """Subscription-driven node; tick is a liveness probe (the reference
+        runs it as rclpy.spin, transform_publisher.py:32-39)."""
+        return {"status": "spinning", "broadcasts": self.broadcasts}
+

@@ -1,3 +1,3 @@
-from . import costs, integrators
+from . import costmap, costs, grid, integrators
 
-__all__ = ["costs", "integrators"]
+__all__ = ["costmap", "costs", "grid", "integrators"]

@@ -94,3 +94,13 @@ def make_packed_tracking(problem: Problem, params: Params = Params(), solve_fn=N
         return _to_device(vec, const["x0"])
 
     return solve_packed, pack
+
+
+def read_tick(sol):
+    """A tick's one read from the device: ``(u0, cost, kkt_residual,
+    converged)`` of a single-scenario Solution, with ``u0 = U[0]`` as a
+    NumPy (2,) array, in one transfer."""
+    f = sol.cost.dtype
+    head = torch.cat([sol.U[0], torch.stack([sol.cost, sol.kkt_residual, sol.converged.to(f)])])
+    v = head.cpu().numpy()
+    return v[:2], float(v[2]), float(v[3]), bool(v[4])
