@@ -29,15 +29,42 @@ runs the main path through the entry points a user calls:
   and its first 5 solves of each path must be bit-equal to the plain
   versions; then a tick with a NaN goal must neither raise nor hang.
 
+Then the robustness composites (``solver/rescue.py``,
+``solver/multistart_bank.py``, ``solver/batched.py``), each kernel
+composite's launch counters zeroed just before its counted call and read
+just after (the launches must equal what its structure implies):
+
+* the corrected two-pass bank (the obstacle-active bank: a
+  ``SolverSettings.fast()`` first pass on K1, capacity 512, a compacted
+  cold+warm rescue bank of 1,024 rows on ``rescue_schedule()``) and its
+  tracking twin on K2 over the tracking bank: converged fractions of the
+  first pass and the two-pass, stragglers, time, and the rescue bank's
+  geometry;
+* the saddle bank (``adversarial_saddle_bank``, B=4096, N=40, corrected,
+  default schedule) through three rungs: plain K1, bank multistart (K=3,
+  12,288 K1 rows) and ``make_multistart_two_pass_solver`` (capacity 512,
+  12 box-DDP polish iterations), whose converged fractions must not
+  decrease, with K1's geometry at 12,288 rows and the polish's own time;
+* the quadrotor ``make_fast_polish_solver`` bank (plain PyTorch, no
+  kernel; B=4096, or 1024 where the full bank takes longer than 60 s).
+
+Every K1/K2 call inside each composite's counted call is recorded with the
+inputs it was given (``CudaBankSolver.record``) and held bit for bit
+against the plain version on those inputs: the composites' checks run at
+the widths the phase runs.
+
 K1 and K2 run one scenario on a group of lanes; each geometry line is the
 kernel's own, and the wrapper's pre-build mirror of it must agree. Each
 kernel is held against its plain PyTorch version on the same inputs on the
 card: bit for bit (``torch.equal`` on U, X, cost, KKT residual and
-n_iters) on every bank and tick, with the deviation bands printed beside;
+n_iters) on every bank and tick, with the deviation bands printed beside
+(the banks' and composites' plain versions in six worker processes, on CPU
+copies of the kernels' inputs);
 and K1 against the port's algorithmic reference (``make_solver``, on the
 CPU) at a small size. The kernels' launch counters are zeroed just
 before the main path and read just after. Then kernel and plain version are
-timed with CUDA events, and both ticks on the host clock.
+timed with CUDA events (the plain version one call), and both ticks on the
+host clock. A ``phase`` line after each phase gives its wall time.
 
 Then the roofline path (``ros2_mpc_tpu_torch.utils.roofline``), its own
 counters zeroed just before it and read just after: K3 (``csrc/chain.cu``)
@@ -63,6 +90,7 @@ lists each kernel with its launches, deviation, times and bound.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -100,6 +128,20 @@ JAX_LOOP_TICKS = {"point": 62, "tracking": 53}
 LOOP_TICK_BAND = (0.75, 1.5)
 LOOP_RECHECK = 5  # solves of each path re-solved through the plain version
 NAN_TICK_S = 30.0  # a NaN-goal tick that takes longer has hung
+# The robustness composites (solver/rescue.py, multistart_bank.py,
+# batched.py) at bench.py's shapes: two-pass capacity 512 for the corrected
+# and tracking banks and the saddle composite, the saddle bank at N=40, the
+# quadrotor composite's polish capacity 1536. The quadrotor composite
+# (plain PyTorch, no kernel) runs at QUAD_B_CUT rows where the full bank
+# takes longer than QUAD_MAX_S.
+COMP_CAPACITY, SADDLE_N, QUAD_CAPACITY = 512, 40, 1536
+QUAD_MAX_S, QUAD_B_CUT = 60.0, 1024
+# Every kernel call of the main path's banks and of the composites' counted
+# calls runs again through its plain version, on CPU copies of the inputs
+# the kernel was given, in PLAIN_WORKERS processes side by side (the plain
+# versions are bound by the host's launches, whatever the rows), all done
+# within PLAIN_TIMEOUT_S.
+PLAIN_WORKERS, PLAIN_TIMEOUT_S = 6, 600.0
 
 
 def headline_bank(rng, B):
@@ -218,12 +260,13 @@ def chain_loop_bodies(lib_path, cuobjdump):
     return bodies
 
 
-def cuda_ms(fn, *args, reps=5):
+def cuda_ms(fn, *args, reps=5, warm=True):
     """Median over `reps` runs of fn(*args), in ms on CUDA events, after a
-    warm-up run."""
+    warm-up run unless ``warm`` is False."""
     import torch
 
-    fn(*args)
+    if warm:
+        fn(*args)
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -351,7 +394,6 @@ def closed_loop_phase(dev, card):
     import torch
 
     from ros2_mpc_tpu_torch.planner import native
-    from ros2_mpc_tpu_torch.solver.cuda_kernel import group_geometry
 
     loop_launches, loop_err = {"K1": 0, "K2": 0}, 0.0
     for follower in ("point", "tracking"):
@@ -396,11 +438,7 @@ def closed_loop_phase(dev, card):
             if unequal:
                 raise AssertionError(f"closed loop {follower} {name}: {unequal}")
             if name == "K1 handoff":  # the 2N geometry at B=1
-                info = engine.kernel_info(1)
-                print(f"K1 handoff (B=1, N={engine.cfg.N}): {info}", flush=True)
-                mirror = group_geometry("point_stab", 1, engine.cfg.N, engine.cfg.n_alphas)
-                if {k: info[k] for k in mirror} != mirror:
-                    raise AssertionError(f"K1 handoff: group_geometry {mirror} is not the kernel's geometry")
+                check_geometry("K1 handoff", engine, 1)
         # one tick with a NaN goal: no raise, no hang, a finite command, and
         # the last one where the solve came back non-finite
         u_before, calls_before = f.u_last.copy(), dict(calls)
@@ -422,6 +460,218 @@ def closed_loop_phase(dev, card):
             raise AssertionError(f"closed loop {follower}: a non-finite solve did not fall back to the last command")
     print(f"closed loop: A* {'native (native/astar.cpp)' if native.load() is not None else 'Python (planner/astar_py.py)'}")
     return loop_launches, loop_err
+
+
+def composite_kernels(comp):
+    """The CUDA bank solvers a composite (or a bank solver) calls."""
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import CudaBankSolver
+
+    return [e for e in getattr(comp, "engines", (comp,)) if isinstance(e, CudaBankSolver)]
+
+
+def run_counted(name, comp, th, U0, expect):
+    """One call of ``comp`` with its kernels' launch counters zeroed just
+    before and read just after; raises unless they launched ``expect``
+    times. Each kernel call of it is recorded with the inputs it was given.
+    Returns (Solution, launches, [(kernel, thetas, U0s, result), ...])."""
+    import torch
+
+    kernels = composite_kernels(comp)
+    for k in kernels:
+        k.launches, k.record = 0, []
+    sol = comp(th, U0)
+    torch.cuda.synchronize()
+    n = sum(k.launches for k in kernels)
+    calls = [(k, *c) for k in kernels for c in k.record]
+    for k in kernels:
+        k.record = None
+    if n != expect or len(calls) != n:
+        raise AssertionError(f"{name}: {n} kernel launches, the composite's structure gives {expect}")
+    for t in sol.U, sol.X, sol.cost:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: non-finite output")
+    return sol, n, calls
+
+
+def plain_job(solver, thetas, U0s, with_counters=False):
+    """The arguments of ``plain_call`` for one kernel call: the solver's
+    build-time configuration and CPU (numpy) copies of the very inputs the
+    kernel was given."""
+    return (
+        solver.kind,
+        solver.cfg,
+        with_counters,
+        {k: v.cpu().numpy() for k, v in thetas.items()},
+        U0s.cpu().numpy(),
+    )
+
+
+def plain_call(kind, cfg, with_counters, thetas, U0s, device):
+    """``CudaBankSolver.plain`` on ``device`` in a worker process, on the
+    inputs of ``plain_job``. Returns (the Solution's fields, the counters,
+    seconds), as numpy arrays."""
+    import torch
+
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import CudaBankSolver
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    out = CudaBankSolver(kind, cfg, with_counters).plain(
+        {k: torch.from_numpy(v).to(dev) for k, v in thetas.items()}, torch.from_numpy(U0s).to(dev)
+    )
+    sol, cnt = out if with_counters else (out, {})
+    return [t.cpu().numpy() for t in sol], {k: v.cpu().numpy() for k, v in cnt.items()}, time.perf_counter() - t0
+
+
+def plain_cost(job):
+    """A plain call's expected cost: schedule iterations x horizon x
+    line-search candidates (the plain versions are bound by the host's
+    launches, whatever the rows)."""
+    cfg = job[1]
+    return len(cfg.mus) * cfg.N * cfg.n_alphas
+
+
+def check_geometry(name, solver, Bk):
+    """Print a kernel's geometry for a bank of Bk and raise unless the
+    wrapper's pre-build mirror agrees."""
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import group_geometry
+
+    info = solver.kernel_info(Bk)
+    print(f"{name} (B={Bk}, N={solver.cfg.N}, n_alphas={solver.cfg.n_alphas}): {info}", flush=True)
+    mirror = group_geometry(solver.kind, Bk, solver.cfg.N, solver.cfg.n_alphas)
+    if {k: info[k] for k in mirror} != mirror:
+        raise AssertionError(f"{name}: group_geometry {mirror} is not the kernel's geometry")
+    return info
+
+
+def composites_phase(dev, card, inp):
+    """The robustness composites through the port's entry points: the
+    corrected and tracking two-pass banks (K1, K2), the saddle bank's three
+    rungs at N=40 (plain K1, bank multistart, multistart two-pass with the
+    KKT polish) and the quadrotor fast-polish bank (plain PyTorch). Each
+    K1/K2 composite's counters are zeroed just before its counted call and
+    read just after. Returns ({"K1": launches, "K2": launches}, [(name,
+    kernel name, kernel calls of its counted call), ...]); the caller holds
+    each of those calls against the plain version on its inputs."""
+    import torch
+
+    from ros2_mpc_tpu_torch.solver import (
+        SolverSettings,
+        adversarial_saddle_bank,
+        make_bank_multistart_solver,
+        make_cuda_two_pass_point_stab,
+        make_cuda_two_pass_tracking,
+        make_fast_polish_solver,
+        make_multistart_two_pass_solver,
+        make_point_stabilization,
+        make_quadrotor_hover,
+    )
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import make_cuda_point_stab_solver
+
+    fast = SolverSettings.fast()
+    launches, checks = {"K1": 0, "K2": 0}, []
+    U0 = torch.zeros(B, N, 2, dtype=torch.float32, device=dev)
+    conv = lambda sol: float(sol.converged.float().mean())  # noqa: E731
+
+    # A/B: fast first pass + compacted cold/warm rescue (bench.py:235-240, :491-498)
+    for name, kname, make, prob, th in (
+        ("corrected two-pass", "K1", make_cuda_two_pass_point_stab, inp.prob_c, inp.th_obs),
+        ("tracking two-pass", "K2", make_cuda_two_pass_tracking, inp.prob_t, inp.th_trk),
+    ):
+        comp = make(prob.ocp, fast, capacity=COMP_CAPACITY)
+        sol, n, calls = run_counted(name, comp, th, U0, expect=2)
+        launches[kname] += n
+        checks.append((name, kname, calls))
+        first = calls[0][3]  # the first pass's Solution
+        fails = int((~first.converged).sum())
+        ms = cuda_ms(comp, th, U0)
+        print(
+            f"composites {name} (B={B}, N={N}, first pass fast, capacity {COMP_CAPACITY}, rescue 16x10 iterations "
+            f"x 12 alphas): converged first pass {conv(first):.4f}, two-pass {conv(sol):.4f}; stragglers {fails} "
+            f"({max(0, fails - COMP_CAPACITY)} beyond capacity); {ms:.3f} ms median of 5 ({B / ms * 1e3:,.0f} "
+            f"solves/s); {kname} launches per call {n} -- {card}",
+            flush=True,
+        )
+        if conv(sol) < conv(first) or bool((sol.kkt_residual > first.kkt_residual).any()):
+            raise AssertionError(f"{name}: the two-pass is worse than its first pass")
+        check_geometry(f"{kname} {name} rescue bank", comp.engines[1], 2 * COMP_CAPACITY)
+
+    # C: the saddle bank's three rungs (bench.py:292-352)
+    prob_s = make_point_stabilization(inp.params, horizon=SADDLE_N, reference_parity=False, device=dev)
+    th_s, U0_s = adversarial_saddle_bank(prob_s, B, seed=0)
+    rungs = (
+        ("plain single-start K1", make_cuda_point_stab_solver(prob_s.ocp, prob_s.settings), 1),
+        ("bank multistart (K=3)", make_bank_multistart_solver(prob_s.ocp, prob_s.settings, swing_fracs=(1.0,)), 1),
+        (
+            "multistart two-pass + polish",
+            make_multistart_two_pass_solver(prob_s.ocp, prob_s.settings, capacity=COMP_CAPACITY, swing_fracs=(1.0,)),
+            2,
+        ),
+    )
+    sols = []
+    for name, solve, expect in rungs:
+        sol, n, calls = run_counted(f"saddle {name}", solve, th_s, U0_s, expect)
+        launches["K1"] += n
+        checks.append((f"saddle {name}", "K1", calls))
+        # the composite's seconds-long calls (the polish is launch-bound
+        # plain PyTorch): one timed call after the counted one
+        reps = 1 if expect == 2 else 3
+        ms = cuda_ms(solve, th_s, U0_s, reps=reps, warm=reps > 1)
+        sols.append(sol)
+        print(
+            f"composites saddle {name} (B={B}, N={SADDLE_N}, corrected, default schedule): converged "
+            f"{conv(sol):.4f}; {ms:.3f} ms {'median of 3' if reps > 1 else 'one call'} ({B / ms * 1e3:,.0f} "
+            f"solves/s); K1 launches per call {n} -- {card}",
+            flush=True,
+        )
+    if not conv(sols[0]) <= conv(sols[1]) <= conv(sols[2]):
+        raise AssertionError(f"saddle rungs: converged fractions {[conv(s) for s in sols]} decrease")
+    if bool((sols[2].kkt_residual > sols[1].kkt_residual).any()):
+        raise AssertionError("saddle composite worse than its multistart first pass on some row")
+    comp_s = rungs[2][1]
+    polish = comp_s.engines[-1]
+    rows = {k: v[:COMP_CAPACITY].contiguous() for k, v in th_s.items()}
+    ms_polish = cuda_ms(polish, rows, sols[1].U[:COMP_CAPACITY].contiguous(), reps=1, warm=False)
+    print(
+        f"composites saddle polish alone (12 box-DDP iterations on {COMP_CAPACITY} rows, N={SADDLE_N}, plain "
+        f"PyTorch): {ms_polish:.3f} ms, one call -- {card}",
+        flush=True,
+    )
+    check_geometry("K1 saddle multistart", comp_s.engines[0], 3 * B)
+
+    # D: the quadrotor fast-polish composite (bench.py:378-414's recipe,
+    # seeded here), plain PyTorch on the card
+    prob_q = make_quadrotor_hover(horizon=N, settings=fast, device=dev)
+    comp_q = make_fast_polish_solver(prob_q.ocp, prob_q.settings, capacity=QUAD_CAPACITY)
+    for Bq in (B, QUAD_B_CUT):
+        rng = np.random.default_rng(3)
+        xq = np.zeros((Bq, 12))
+        xq[:, 0:3] = rng.uniform(-0.4, 0.4, size=(Bq, 3))
+        xq[:, 6:8] = rng.uniform(-0.15, 0.15, size=(Bq, 2))
+        xq[:, 8] = rng.uniform(-0.5, 0.5, size=Bq)
+        gq = np.concatenate([rng.uniform(-0.3, 0.3, size=(Bq, 3)), rng.uniform(-0.4, 0.4, size=(Bq, 1))], axis=1)
+        tens = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        th_q = torch.func.vmap(prob_q.make_theta)(tens(xq), tens(gq))
+        U0_q = prob_q.default_u0.repeat(Bq, 1, 1)
+        t0 = time.perf_counter()
+        sol_q = comp_q(th_q, U0_q)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if secs <= QUAD_MAX_S or Bq == QUAD_B_CUT:
+            break
+        print(f"composites quadrotor fast-polish at B={Bq} took {secs:.1f} s, above {QUAD_MAX_S:.0f} s: cut to B={QUAD_B_CUT}")
+    first_q = comp_q.engines[0](th_q, U0_q)
+    print(
+        f"composites quadrotor fast-polish (B={Bq}{'' if Bq == B else ', cut from ' + str(B)}, N={N}, fast first "
+        f"pass, polish capacity {min(QUAD_CAPACITY, Bq)}, 12 iterations; plain PyTorch, no kernel): converged first "
+        f"pass {conv(first_q):.4f}, composite {conv(sol_q):.4f}; {secs * 1e3:.1f} ms (host clock, one call) "
+        f"({Bq / secs:,.0f} solves/s) -- {card}",
+        flush=True,
+    )
+    if not bool(torch.isfinite(sol_q.U).all()) or conv(sol_q) < conv(first_q):
+        raise AssertionError("quadrotor fast-polish: non-finite, or worse than its first pass")
+    print(f"launch counters of the composites: {launches}", flush=True)
+    return launches, checks
 
 
 def main_path_inputs(dev):
@@ -482,18 +732,22 @@ def main() -> int:
         return 2
 
     from ros2_mpc_tpu_torch import _build
-    from ros2_mpc_tpu_torch.solver import SolverSettings, make_point_stabilization
-    from ros2_mpc_tpu_torch.solver.cuda_kernel import (
-        group_geometry,
-        make_cuda_point_stab_solver,
-        make_cuda_tracking_solver,
-    )
+    from ros2_mpc_tpu_torch.solver import Solution, SolverSettings, make_point_stabilization
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import make_cuda_point_stab_solver, make_cuda_tracking_solver
     from ros2_mpc_tpu_torch.utils import roofline as rl
     from ros2_mpc_tpu_torch.utils.telemetry import profile_trace
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        """Print the wall time since the last lap: where the script's time goes."""
+        now = time.perf_counter()
+        print(f"phase {name}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
 
     # ---- 1. the card and the build
     card = subprocess.run(
@@ -519,6 +773,7 @@ def main() -> int:
     if u1.count("FFMA") != 1 or not u1 or u1[-1] != "BRA" or u16.count("FFMA") != 16:
         raise AssertionError(f"K3's fma trip loop is not one FFMA and a branch: {u1} / {u16}")
 
+    lap("build and SASS")
     inp = main_path_inputs(dev)
     params, prob, prob_t = inp.params, inp.prob, inp.prob_t
     th_main, th_obs, th_trk = inp.th_main, inp.th_obs, inp.th_trk
@@ -538,12 +793,9 @@ def main() -> int:
     # wrapper's pre-build mirror of it must agree.
     geometry_lines = (("K1 headline", k1, B), ("K1 tick", k1_tick, 1), ("K2 tracking", k2, B), ("K2 tick", k2_tick, 1))
     for name, s, Bk in geometry_lines:
-        info = s.kernel_info(Bk)
-        print(f"{name} (B={Bk}, N={s.cfg.N}): {info}", flush=True)
-        mirror = group_geometry(s.kind, Bk, s.cfg.N, s.cfg.n_alphas)
-        if {k: info[k] for k in mirror} != mirror:
-            raise AssertionError(f"{name}: group_geometry {mirror} is not the kernel's geometry")
+        check_geometry(name, s, Bk)
 
+    lap("inputs and geometry")
     # ---- main path, with the launch counters zeroed just before
     for s in (k1, k2, k1_tick, k2_tick):
         s.launches = 0
@@ -558,18 +810,11 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
-    # ---- 2-5. the same inputs through the plain versions (with their
-    # counters, which the counted reruns of the roofline path must match)
+    lap("main path")
+    # ---- 2-5. the ticks through the plain versions (the banks' plain
+    # versions run in worker processes after the composites, below)
     k1_cnt = make_cuda_point_stab_solver(prob.ocp, prob.settings, with_counters=True)
     k2_cnt = make_cuda_tracking_solver(prob_t.ocp, prob_t.settings, with_counters=True)
-    plain = {
-        "K1 headline": k1_cnt.plain(th_main, U0),
-        "K1 obstacle-active": k1_cnt.plain(th_obs, U0),
-        "K2 tracking": k2_cnt.plain(th_trk, U0),
-    }
-    err1 = compare(f"K1 headline bank (parity, B={B}, N={N})", sol_main, plain["K1 headline"][0], INERT)
-    compare("K1 obstacle-active bank (corrected)", sol_obs, plain["K1 obstacle-active"][0], LIVE)
-    err2 = compare("K2 tracking bank (corrected, terminal weight)", sol_trk, plain["K2 tracking"][0], LIVE)
     plain_paths = tick_paths(inp, k1_tick.plain, k2_tick.plain)
     tick_errs = {}
     for name, (ticks, pose) in ran.items():
@@ -601,36 +846,89 @@ def main() -> int:
     if conv < 0.95:
         raise AssertionError(f"headline bank converged fraction {conv}")
 
+    lap("plain ticks and tick latency")
     # ---- the closed loop, run_sim_stack's scenario, for both followers
     loop_launches, loop_err = closed_loop_phase(dev, card)
 
-    # ---- K1 against the algorithmic reference (make_solver, CPU), small
-    fast = SolverSettings.fast()
-    prob_ref = make_point_stabilization(params, horizon=N, reference_parity=False, settings=fast, device="cpu")
-    th_small = {k: v[:4].cpu() for k, v in th_obs.items()}
-    ref = torch.func.vmap(prob_ref.solve)(th_small, torch.zeros(4, N, 2))
-    got = make_cuda_point_stab_solver(prob_ref.ocp, fast)(
-        {k: v.to(dev) for k, v in th_small.items()}, torch.zeros(4, N, 2, device=dev)
-    )
-    dU_ref = float((got.U.cpu() - ref.U).abs().max())
-    dc_ref = float(((got.cost.cpu() - ref.cost).abs() / ref.cost.abs()).max())
-    print(f"K1 vs make_solver (B=4, N={N}, fast, obstacles): max|dU| {dU_ref:.3e}, rel dcost {dc_ref:.3e}")
-    if dU_ref > LIVE[0] or dc_ref > LIVE[1]:
-        raise AssertionError("K1 disagrees with make_solver")
-
+    lap("closed loop")
+    # ---- the robustness composites, each counted on its own call; then
+    # every kernel call of the main path's banks and of those counted calls
+    # through its plain version on CPU copies of the inputs the kernel was
+    # given, in worker processes, side by side with the CPU check below
+    # (nothing is timed on the card meanwhile), costliest first
+    comp_launches, comp_checks = composites_phase(dev, card, inp)
+    lap("composites")
+    bank_jobs = {
+        "K1 headline": plain_job(k1, th_main, U0, with_counters=True),
+        "K1 obstacle-active": plain_job(k1, th_obs, U0, with_counters=True),
+        "K2 tracking": plain_job(k2, th_trk, U0, with_counters=True),
+    }
+    jobs = list(bank_jobs.values()) + [plain_job(k, th, U) for _, _, calls in comp_checks for k, th, U, _ in calls]
+    order = sorted(range(len(jobs)), key=lambda i: -plain_cost(jobs[i]))
+    with multiprocessing.get_context("spawn").Pool(PLAIN_WORKERS) as pool:  # terminated on exit
+        pending = {i: pool.apply_async(plain_call, (*jobs[i], str(dev))) for i in order}
+        deadline = time.perf_counter() + PLAIN_TIMEOUT_S
+        # ---- K1 against the algorithmic reference (make_solver, CPU), small
+        fast = SolverSettings.fast()
+        prob_ref = make_point_stabilization(params, horizon=N, reference_parity=False, settings=fast, device="cpu")
+        th_small = {k: v[:4].cpu() for k, v in th_obs.items()}
+        ref = torch.func.vmap(prob_ref.solve)(th_small, torch.zeros(4, N, 2))
+        got = make_cuda_point_stab_solver(prob_ref.ocp, fast)(
+            {k: v.to(dev) for k, v in th_small.items()}, torch.zeros(4, N, 2, device=dev)
+        )
+        dU_ref = float((got.U.cpu() - ref.U).abs().max())
+        dc_ref = float(((got.cost.cpu() - ref.cost).abs() / ref.cost.abs()).max())
+        print(f"K1 vs make_solver (B=4, N={N}, fast, obstacles): max|dU| {dU_ref:.3e}, rel dcost {dc_ref:.3e}")
+        if dU_ref > LIVE[0] or dc_ref > LIVE[1]:
+            raise AssertionError("K1 disagrees with make_solver")
+        lap("K1 against make_solver")
+        results = [pending[i].get(timeout=max(1.0, deadline - time.perf_counter())) for i in range(len(jobs))]
+    plain = {}  # the main path's banks (with their counters, which the
+    # counted reruns of the roofline path must match)
+    for name, (sol, cnt, secs) in zip(bank_jobs, results):
+        plain[name] = (
+            Solution(*(torch.from_numpy(t).to(dev) for t in sol)),
+            {k: torch.from_numpy(v).to(dev) for k, v in cnt.items()},
+        )
+        print(f"{name} bank's plain version: {secs:.1f} s in its worker", flush=True)
+    err1 = compare(f"K1 headline bank (parity, B={B}, N={N})", sol_main, plain["K1 headline"][0], INERT)
+    compare("K1 obstacle-active bank (corrected)", sol_obs, plain["K1 obstacle-active"][0], LIVE)
+    err2 = compare("K2 tracking bank (corrected, terminal weight)", sol_trk, plain["K2 tracking"][0], LIVE)
+    # each composite's kernel calls, at the shapes its counted call gave them
+    comp_err, done = {"K1": 0.0, "K2": 0.0}, iter(results[len(bank_jobs) :])
+    fields = ("U", "X", "cost", "kkt_residual", "converged", "n_iters")
+    for name, kname, calls in comp_checks:
+        unequal, rows, secs = [], [], []
+        for i, (_, th, _, got) in enumerate(calls):
+            sol, _, sec = next(done)
+            ref = Solution(*(torch.from_numpy(t).to(dev) for t in sol))
+            unequal += [f"call {i} {f}" for f in fields if not torch.equal(getattr(got, f), getattr(ref, f))]
+            comp_err[kname] = max(comp_err[kname], float((got.U - ref.U).abs().max()))
+            rows.append(str(th["x0"].shape[0]))
+            secs.append(f"{sec:.1f}")
+        line = (
+            f"composites {name}: its {len(calls)} {kname} call(s) of {', '.join(rows)} rows bit-equal to the plain "
+            f"version on the same inputs {'yes' if not unequal else 'no: ' + ', '.join(unequal)} "
+            f"({', '.join(secs)} s in their workers)"
+        )
+        print(line, flush=True)
+        if unequal:
+            raise AssertionError(f"{line}: differs from the plain version")
+    lap("plain versions of the banks and composites")
     # ---- 6. timing, kernel and plain version alternating
     times = {}
     for name, s, th in (("K1", k1, th_main), ("K2", k2, th_trk)):
-        times[name] = (cuda_ms(s, th, U0), cuda_ms(s.plain, th, U0, reps=3))
+        times[name] = (cuda_ms(s, th, U0), cuda_ms(s.plain, th, U0, reps=1, warm=False))
         ms, plain_ms = times[name]
         print(
             f"timing {name} B={B} N={N}: kernel {ms:.3f} ms ({B / ms * 1e3:.0f} solves/s, median "
-            f"of 5), plain {plain_ms:.1f} ms ({B / plain_ms * 1e3:.0f} solves/s, median of 3) -- {card}",
+            f"of 5), plain {plain_ms:.1f} ms ({B / plain_ms * 1e3:.0f} solves/s, one call) -- {card}",
             flush=True,
         )
     ms_obs = cuda_ms(k1, th_obs, U0)
     print(f"timing K1 obstacle-active bank: kernel {ms_obs:.3f} ms, median of 5 -- {card}", flush=True)
 
+    lap("timing")
     # ---- 7. the roofline path, with its launch counters zeroed just before
     k3 = rl.chain_kernel
     for s in (k3, k1_cnt, k2_cnt):
@@ -780,8 +1078,8 @@ def main() -> int:
             "route": "cuda",
             "source": "ros2_mpc_tpu_torch/csrc/point_stab.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:119",
-            "launches": launches["K1"] + loop_launches["K1"],
-            "max_abs_err": max(err1, tick_errs["K1 tick"], loop_err),
+            "launches": launches["K1"] + loop_launches["K1"] + comp_launches["K1"],
+            "max_abs_err": max(err1, tick_errs["K1 tick"], loop_err, comp_err["K1"]),
             "ms": times["K1"][0],
             "plain_ms": times["K1"][1],
             "bound_ms": bounds["K1 headline"][0],
@@ -793,8 +1091,8 @@ def main() -> int:
             "route": "cuda",
             "source": "ros2_mpc_tpu_torch/csrc/tracking.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:769",
-            "launches": launches["K2"] + loop_launches["K2"],
-            "max_abs_err": max(err2, tick_errs["K2 tick"], loop_err),
+            "launches": launches["K2"] + loop_launches["K2"] + comp_launches["K2"],
+            "max_abs_err": max(err2, tick_errs["K2 tick"], loop_err, comp_err["K2"]),
             "ms": times["K2"][0],
             "plain_ms": times["K2"][1],
             "bound_ms": bounds["K2 tracking"][0],
@@ -816,6 +1114,7 @@ def main() -> int:
             "fma_tflops": peaks["fma_flops_per_s"] / 1e12,
         },
     ]
+    lap("roofline and profile")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,3 +1,3 @@
-from . import unicycle
+from . import bicycle, quadrotor, unicycle, unicycle_dyn
 
-__all__ = ["unicycle"]
+__all__ = ["unicycle", "bicycle", "quadrotor", "unicycle_dyn"]

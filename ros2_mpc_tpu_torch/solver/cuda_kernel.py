@@ -622,7 +622,10 @@ class CudaBankSolver:
     ``with_counters`` the call returns ``(Solution, {"iters", "ls_rollouts"})``
     (per-scenario executed iterations and line-search candidate rollouts).
 
-    ``launches`` counts the kernel's launches, and nothing else.
+    ``launches`` counts the kernel's launches, and nothing else. Where a
+    caller sets ``record`` to a list, each kernel call appends its
+    ``(thetas, U0s, result)`` there, so every launch inside a composite can
+    be held against :meth:`plain` on the inputs it was given.
     """
 
     def __init__(self, kind: str, cfg: BankConfig, with_counters: bool):
@@ -630,6 +633,7 @@ class CudaBankSolver:
         self.cfg = cfg
         self.with_counters = with_counters
         self.launches = 0
+        self.record = None
         self._schedules: dict = {}  # device -> (mu, stage, first) tensors
 
     def _pack(self, thetas, U0s):
@@ -740,7 +744,10 @@ class CudaBankSolver:
         if dev.type == "cpu":
             return self._finish(self._plain(planes))
         if dev.type == "cuda":
-            return self._finish(self._launch(planes))
+            out = self._finish(self._launch(planes))
+            if self.record is not None:
+                self.record.append((thetas, U0s, out))
+            return out
         raise ValueError(f"no bank solver for device {dev}")
 
     def plain(self, thetas, U0s):

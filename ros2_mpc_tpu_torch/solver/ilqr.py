@@ -157,20 +157,23 @@ def make_solver(ocp: OCP, settings: SolverSettings = SolverSettings()):
             return acc + ocp.terminal_cost(x, theta)
 
         def stage_derivs(x, u, k, mu):
-            A = jacfwd(lambda xx: F(xx, u))(x)
-            B = jacfwd(lambda uu: F(x, uu))(u)
+            # forward-mode tangents can come back float64 (a product of
+            # tangents scaled by a Python float, e.g. the bicycle's
+            # v * tan(delta) / L): cast them to the state's dtype
+            A = jacfwd(lambda xx: F(xx, u))(x).to(x.dtype)
+            B = jacfwd(lambda uu: F(x, uu))(u).to(x.dtype)
 
             def lz(z):
                 return stage_cost_mu(z[:n], z[n:], k, mu)
 
             z = torch.cat([x, u])
             g = grad(lz)(z)
-            H = hessian(lz)(z)
+            H = hessian(lz)(z).to(z.dtype)
             return A, B, g[:n], g[n:], H[:n, :n], H[n:, :n], H[n:, n:]
 
         def backward_pass(X, U, mu, reg):
             Vx = grad(lambda x: ocp.terminal_cost(x, theta))(X[-1])
-            Vxx = hessian(lambda x: ocp.terminal_cost(x, theta))(X[-1])
+            Vxx = hessian(lambda x: ocp.terminal_cost(x, theta))(X[-1]).to(X.dtype)
             dV1, dV2 = 0.0, 0.0
             kffs, Ks = [None] * N, [None] * N
             for k in reversed(range(N)):
