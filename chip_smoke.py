@@ -53,6 +53,19 @@ inputs it was given (``CudaBankSolver.record``) and held bit for bit
 against the plain version on those inputs: the composites' checks run at
 the widths the phase runs.
 
+Then the fleets and the sampling engines (``parallel/fleet.py``,
+``solver/mppi.py``) at ``bench.py``'s widths, 1024 robots: the tracking
+fleet (64 ticks, K2), the swarm (the 32x32 grid swap, 128 ticks, K1),
+``device_tick_rate`` and its rollout (64 ticks, K1), the generic quadrotor
+fleet (plain PyTorch, the ticks that fit in 60 s), the hybrid bank (MPPI,
+then two K1 calls) and the point follower's escape tick. Each K1/K2 rollout
+runs once to warm up, then once with its counters zeroed, every kernel call
+recorded and ``torch.cuda.set_sync_debug_mode("error")`` on: it must launch
+its kernel once a tick and read nothing back inside the loop. The first and
+last ticks' kernel calls and the hybrid's join the plain checks, and a
+16-robot tracking fleet and swarm on the card must stay within 2e-3 of the
+same rollouts on the CPU.
+
 K1 and K2 run one scenario on a group of lanes; each geometry line is the
 kernel's own, and the wrapper's pre-build mirror of it must agree. Each
 kernel is held against its plain PyTorch version on the same inputs on the
@@ -142,6 +155,28 @@ QUAD_MAX_S, QUAD_B_CUT = 60.0, 1024
 # versions are bound by the host's launches, whatever the rows), all done
 # within PLAIN_TIMEOUT_S.
 PLAIN_WORKERS, PLAIN_TIMEOUT_S = 6, 600.0
+# The fleets (parallel/fleet.py) at bench.py's widths (:416-441, :538-610):
+# 1024 robots; the tracking fleet 64 ticks, the swarm 128, device_tick_rate
+# 64, the quadrotor fleet as many of its 40 ticks as fit in QUAD_FLEET_MAX_S
+# (plain PyTorch, launch-bound). Each K1/K2 rollout runs once to warm up,
+# then once counted and recorded under torch.cuda.set_sync_debug_mode
+# ("error"); its first and last ticks' kernel calls join the plain checks.
+# A FLEET_SMALL_B-robot tracking fleet and swarm of FLEET_SMALL_TICKS ticks
+# on the card must match the same rollouts on the CPU within FLEET_CPU_ATOL
+# on the trajectories: the kernels equal their plain versions bit for bit,
+# but the plant's RK4 and the reference windows run sin/cos in CUDA's libm
+# on the card and in the CPU's libm on the host (the JAX suite's band
+# between its engines inside a closed loop, tests/test_tracking_fleet.py:107-112).
+FLEET_B, TRACK_FLEET_TICKS, SWARM_TICKS, TICK_RATE_TICKS = 1024, 64, 128, 64
+SWARM_SIDE = 32  # the grid swap's side: SWARM_SIDE**2 = FLEET_B robots
+QUAD_FLEET_TICKS, QUAD_FLEET_MAX_S = 40, 60.0
+FLEET_SMALL_B, FLEET_SMALL_TICKS, FLEET_CPU_ATOL = 16, 8, 2e-3
+# The hybrid bank (bench.py:257-290): the first 1024 rows of the
+# obstacle-active bank, MPPI 128 samples x 8 iterations, the polish on K1.
+# The escape tick (tests/test_mppi.py:137-166): the point follower with
+# escape_after=3 at horizon 12, a forced stall, goal (0.4, -1.6), at most
+# 250 ticks after it.
+HYBRID_B, ESCAPE_GOAL, ESCAPE_MAX_TICKS = 1024, (0.4, -1.6), 250
 
 
 def headline_bank(rng, B):
@@ -581,7 +616,7 @@ def composites_phase(dev, card, inp):
         comp = make(prob.ocp, fast, capacity=COMP_CAPACITY)
         sol, n, calls = run_counted(name, comp, th, U0, expect=2)
         launches[kname] += n
-        checks.append((name, kname, calls))
+        checks.append((f"composites {name}", kname, calls))
         first = calls[0][3]  # the first pass's Solution
         fails = int((~first.converged).sum())
         ms = cuda_ms(comp, th, U0)
@@ -612,7 +647,7 @@ def composites_phase(dev, card, inp):
     for name, solve, expect in rungs:
         sol, n, calls = run_counted(f"saddle {name}", solve, th_s, U0_s, expect)
         launches["K1"] += n
-        checks.append((f"saddle {name}", "K1", calls))
+        checks.append((f"composites saddle {name}", "K1", calls))
         # the composite's seconds-long calls (the polish is launch-bound
         # plain PyTorch): one timed call after the counted one
         reps = 1 if expect == 2 else 3
@@ -644,14 +679,7 @@ def composites_phase(dev, card, inp):
     prob_q = make_quadrotor_hover(horizon=N, settings=fast, device=dev)
     comp_q = make_fast_polish_solver(prob_q.ocp, prob_q.settings, capacity=QUAD_CAPACITY)
     for Bq in (B, QUAD_B_CUT):
-        rng = np.random.default_rng(3)
-        xq = np.zeros((Bq, 12))
-        xq[:, 0:3] = rng.uniform(-0.4, 0.4, size=(Bq, 3))
-        xq[:, 6:8] = rng.uniform(-0.15, 0.15, size=(Bq, 2))
-        xq[:, 8] = rng.uniform(-0.5, 0.5, size=Bq)
-        gq = np.concatenate([rng.uniform(-0.3, 0.3, size=(Bq, 3)), rng.uniform(-0.4, 0.4, size=(Bq, 1))], axis=1)
-        tens = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
-        th_q = torch.func.vmap(prob_q.make_theta)(tens(xq), tens(gq))
+        th_q = quadrotor_bank(prob_q, Bq, dev)
         U0_q = prob_q.default_u0.repeat(Bq, 1, 1)
         t0 = time.perf_counter()
         sol_q = comp_q(th_q, U0_q)
@@ -672,6 +700,281 @@ def composites_phase(dev, card, inp):
         raise AssertionError("quadrotor fast-polish: non-finite, or worse than its first pass")
     print(f"launch counters of the composites: {launches}", flush=True)
     return launches, checks
+
+
+def quadrotor_bank(prob_q, Bq, dev):
+    """bench.py:378-414's quadrotor recipe, drawn from np.random.default_rng(3):
+    starts near hover with tilt and yaw, goal poses within 0.3 m."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    xq = np.zeros((Bq, 12))
+    xq[:, 0:3] = rng.uniform(-0.4, 0.4, size=(Bq, 3))
+    xq[:, 6:8] = rng.uniform(-0.15, 0.15, size=(Bq, 2))
+    xq[:, 8] = rng.uniform(-0.5, 0.5, size=Bq)
+    gq = np.concatenate([rng.uniform(-0.3, 0.3, size=(Bq, 3)), rng.uniform(-0.4, 0.4, size=(Bq, 1))], axis=1)
+    tens = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return torch.func.vmap(prob_q.make_theta)(tens(xq), tens(gq))
+
+
+def run_rollout(name, roll, args, ticks):
+    """One rollout through ``roll`` after a warm-up call: its kernels'
+    launch counters zeroed just before and read just after, every kernel
+    call recorded, all of it under ``torch.cuda.set_sync_debug_mode("error")``
+    up to the result (a read back, ``nonzero`` or pageable copy inside a
+    tick raises there), timed with CUDA events. Raises unless the kernels
+    launched once a tick. Returns (result, ms, launches, recorded calls)."""
+    import torch
+
+    roll(*args)  # warm-up: the kernels' schedules reach the card here
+    torch.cuda.synchronize()
+    kernels = composite_kernels(roll)
+    for k in kernels:
+        k.launches, k.record = 0, []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        out = roll(*args)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.synchronize()
+    launches = sum(k.launches for k in kernels)
+    calls = [(k, *c) for k in kernels for c in k.record]
+    for k in kernels:
+        k.record = None
+    if launches != ticks or len(calls) != ticks:
+        raise AssertionError(f"{name}: {launches} kernel launches in {ticks} ticks")
+    if not bool(torch.isfinite(out.final_states).all()):
+        raise AssertionError(f"{name}: non-finite final states")
+    return out, start.elapsed_time(end), launches, calls
+
+
+def fleets_phase(dev, card, inp):
+    """The fleets and the sampling engines through the port's entry points:
+    the tracking fleet (K2), the swarm (K1), device_tick_rate and its
+    rollout (K1), the generic quadrotor fleet (plain PyTorch), the hybrid
+    bank (MPPI, then K1) and the point follower's escape tick (the multistart
+    engine on K1). Each K1/K2 rollout is counted, recorded and run without a
+    host sync (``run_rollout``). Returns ({"K1": launches, "K2": launches},
+    [(name, kernel name, kernel calls), ...] for the plain checks, and a
+    function that runs the card-against-CPU fleets)."""
+    import torch
+
+    from ros2_mpc_tpu_torch.nodes.launch import build_sim_stack
+    from ros2_mpc_tpu_torch.parallel import (
+        arc_path_fleet,
+        grid_swap_swarm,
+        make_fleet_rollout,
+        make_generic_fleet_rollout,
+        make_swarm_rollout,
+        make_tracking_fleet_rollout,
+        random_fleet,
+    )
+    from ros2_mpc_tpu_torch.solver import (
+        SolverSettings,
+        make_bank_solver_fast,
+        make_hybrid_solver,
+        make_point_stabilization,
+        make_quadrotor_hover,
+        make_tracking,
+    )
+    from ros2_mpc_tpu_torch.solver.packed import device_tick_rate
+
+    params, dt, rt = inp.params, inp.params.dt, SolverSettings.realtime()
+    launches, checks = {"K1": 0, "K2": 0}, []
+
+    def report(name, out, ms, n, ticks, Bf, quality, kname, calls):
+        # the tick's kernel call alone on the first and the last tick's
+        # inputs splits a tick into the bank solve (wrapper and kernel) and
+        # the rest (host-issued tensor ops)
+        k_ms = [cuda_ms(c[0], *c[1:3]) for c in (calls[0], calls[-1])]
+        print(
+            f"fleets {name} (B={Bf}, N={N}, realtime, {ticks} ticks): reach {float(out.reach_fraction):.4f}, "
+            f"{quality}; {ms / ticks:.3f} ms a tick, {Bf * ticks / ms * 1e3:,.0f} robot-ticks/s (CUDA events, "
+            f"one rollout), the {kname} call alone {k_ms[0]:.3f} ms on tick 0's inputs and {k_ms[1]:.3f} ms on the "
+            f"last tick's (median of 5); launches {n} for {ticks} ticks; no host sync inside the rollout -- {card}",
+            flush=True,
+        )
+
+    # the tracking fleet: corrected, terminal weight (10, 10, 1), arc paths
+    def tracking_problem(d):
+        return make_tracking(params, horizon=N, reference_parity=False, settings=rt, terminal_weight=(10.0, 10.0, 1.0), device=d)
+
+    prob_tf = tracking_problem(dev)
+    th_tf, paths_tf, U0_tf = arc_path_fleet(prob_tf, FLEET_B, n_waypoints=64, seed=0, device=dev)
+    roll_tf = make_tracking_fleet_rollout(prob_tf, TRACK_FLEET_TICKS, dt, goal_threshold=0.25, device=dev)
+    out, ms, n, calls = run_rollout("tracking fleet", roll_tf, (th_tf, paths_tf, U0_tf), TRACK_FLEET_TICKS)
+    report(
+        "tracking fleet", out, ms, n, TRACK_FLEET_TICKS, FLEET_B,
+        f"mean cross-track {float(out.mean_cross_track):.4f} m, max {float(out.max_cross_track):.4f} m", "K2", calls,
+    )  # fmt: skip
+    launches["K2"] += n
+    checks.append((f"fleets tracking fleet ticks 0 and {TRACK_FLEET_TICKS - 1}", "K2", [calls[0], calls[-1]]))
+
+    # the swarm: the grid swap, 32 x 32 robots 2 m apart, k = 4 neighbors
+    def swarm_problem(d):
+        return make_point_stabilization(params, horizon=N, reference_parity=False, settings=rt, device=d)
+
+    prob_sw = swarm_problem(dev)
+    th_sw, U0_sw = grid_swap_swarm(prob_sw, side=SWARM_SIDE, pitch=2.0, device=dev)
+    roll_sw = make_swarm_rollout(prob_sw, SWARM_TICKS, dt, k_neighbors=4, device=dev)
+    out, ms, n, calls = run_rollout("swarm", roll_sw, (th_sw, U0_sw), SWARM_TICKS)
+    report(
+        f"swarm (grid swap {SWARM_SIDE}x{SWARM_SIDE}, pitch 2 m, k=4)", out, ms, n, SWARM_TICKS, SWARM_SIDE**2,
+        f"mean distance {float(out.mean_dist):.4f} m, min separation {float(out.min_separation):.4f} m", "K1", calls,
+    )  # fmt: skip
+    launches["K1"] += n
+    checks.append((f"fleets swarm ticks 0 and {SWARM_TICKS - 1}", "K1", [calls[0], calls[-1]]))
+
+    # device_tick_rate (parity, realtime, N=20: bench.py's prob_rt), and its
+    # rollout counted and checked for host syncs
+    prob_rt = make_point_stabilization(params, horizon=N, settings=rt, device=dev)
+    tick_s = device_tick_rate(prob_rt, n_ticks=TICK_RATE_TICKS, dt=dt, device=dev)
+    th_rt, U0_rt = random_fleet(prob_rt, FLEET_B, seed=0, device=dev)
+    roll_rt = make_fleet_rollout(prob_rt, TICK_RATE_TICKS, dt, device=dev)
+    out, ms, n, _ = run_rollout("device_tick_rate rollout", roll_rt, (th_rt, U0_rt), TICK_RATE_TICKS)
+    print(
+        f"fleets device_tick_rate (random_fleet B={FLEET_B}, N={N}, parity, realtime, {TICK_RATE_TICKS} ticks): "
+        f"{tick_s * 1e3:.4f} ms a tick (best of 5, CUDA events), {FLEET_B / tick_s:,.0f} robot-ticks/s; its rollout "
+        f"once more: {ms / TICK_RATE_TICKS:.4f} ms a tick, reach {float(out.reach_fraction):.4f}, mean distance "
+        f"{float(out.mean_dist):.4f} m, launches {n} for {TICK_RATE_TICKS} ticks; no host sync inside the rollout "
+        f"-- {card}",
+        flush=True,
+    )
+    launches["K1"] += n
+
+    # the generic quadrotor fleet (bench.py:416-441): plain PyTorch, as many
+    # of its ticks as fit in QUAD_FLEET_MAX_S, one tick timed first (after
+    # one that warms up: the first call takes ~4x a later one)
+    prob_qf = make_quadrotor_hover(horizon=N, settings=rt, device=dev)
+    th_qf = {k: v[:FLEET_B].contiguous() for k, v in quadrotor_bank(prob_qf, B, dev).items()}
+    U0_qf = prob_qf.default_u0.repeat(FLEET_B, 1, 1)
+    fast_q = make_bank_solver_fast(prob_qf.ocp, prob_qf.settings)
+    one = make_generic_fleet_rollout(prob_qf, 1, goal_threshold=0.1, engine=lambda o, st: fast_q, device=dev)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        one(th_qf, U0_qf)
+        torch.cuda.synchronize()
+        tick_q = time.perf_counter() - t0
+    T_q = int(min(QUAD_FLEET_TICKS, max(1, QUAD_FLEET_MAX_S // tick_q)))
+    roll_qf = make_generic_fleet_rollout(prob_qf, T_q, goal_threshold=0.1, engine=lambda o, st: fast_q, device=dev)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = roll_qf(th_qf, U0_qf)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cut = f", cut from {QUAD_FLEET_TICKS}: one tick took {tick_q:.2f} s" if T_q < QUAD_FLEET_TICKS else ""
+    print(
+        f"fleets quadrotor generic fleet (B={FLEET_B}, N={N}, realtime, goal threshold 0.1, {T_q} ticks{cut}; plain "
+        f"PyTorch, no kernel): reach {float(out.reach_fraction):.4f}, mean distance {float(out.mean_dist):.4f} m; "
+        f"{secs / T_q * 1e3:.1f} ms a tick (host clock), {FLEET_B * T_q / secs:,.0f} robot-ticks/s; no host sync "
+        f"inside the rollout -- {card}",
+        flush=True,
+    )
+    if not bool(torch.isfinite(out.final_states).all()):
+        raise AssertionError("quadrotor fleet: non-finite final states")
+
+    # the hybrid bank: MPPI 128 x 8, the polish and the plain solve on K1
+    th_h = {k: v[:HYBRID_B].contiguous() for k, v in inp.th_obs.items()}
+    U0_h = torch.zeros(HYBRID_B, N, 2, dtype=torch.float32, device=dev)
+    hybrid = make_hybrid_solver(inp.prob_c.ocp, inp.prob_c.settings, device=dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    hybrid(th_h, U0_h, gen())  # warm-up
+    torch.cuda.synchronize()
+    (k1_h,) = hybrid.engines
+    k1_h.launches, k1_h.record = 0, []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        sol_h = hybrid(th_h, U0_h, gen())
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.synchronize()
+    ms_h, n = start.elapsed_time(end), k1_h.launches
+    calls = [(k1_h, *c) for c in k1_h.record]
+    k1_h.record = None
+    plain_k1 = calls[1][3]  # the hybrid's second K1 call: plain K1 from U0
+    conv_h, conv_p = float(sol_h.converged.float().mean()), float(plain_k1.converged.float().mean())
+    print(
+        f"fleets hybrid bank (obstacle-active rows 0-{HYBRID_B - 1}, N={N}, corrected, default schedule, MPPI 128 "
+        f"samples x 8 iterations): converged hybrid {conv_h:.4f}, plain K1 {conv_p:.4f}; {ms_h:.3f} ms one call "
+        f"({HYBRID_B / ms_h * 1e3:,.0f} solves/s), K1 launches {n}; no host sync inside -- {card}",
+        flush=True,
+    )
+    if n != 2 or len(calls) != 2:
+        raise AssertionError(f"hybrid: {n} K1 launches, its structure gives 2")
+    both = sol_h.converged & plain_k1.converged
+    if conv_h < conv_p or bool((sol_h.cost[both] > plain_k1.cost[both] + 1e-5).any()):
+        raise AssertionError("hybrid: worse than plain K1")
+    launches["K1"] += n
+    checks.append(("fleets hybrid bank", "K1", calls))
+
+    # the escape tick: the point follower's multistart on K1
+    stack = build_sim_stack(
+        follower="point", start_pose=LOOP_START, horizon=12, follower_kwargs=dict(escape_after=3), device=dev
+    )
+    f = stack.follower
+    f.engine.launches = f.escape_engine.launches = 0
+    stack.publish_goal(*ESCAPE_GOAL)
+    stack.global_planner.tick()
+    first = stack.tick()["control"].get("escaped")
+    f._stall = 99  # force the stall detector past the threshold
+    t0 = time.perf_counter()
+    out = stack.tick()["control"]
+    esc_ms = (time.perf_counter() - t0) * 1e3
+    ticks, reached = 2, False
+    for _ in range(ESCAPE_MAX_TICKS):
+        ticks += 1
+        if stack.tick()["control"].get("status") == "goal_reached":
+            reached = True
+            break
+    print(
+        f"fleets escape tick (point follower, horizon 12, escape_after 3, forced stall, goal {ESCAPE_GOAL}): escaped "
+        f"{out['escaped']} (tick before {first}), escapes {f.n_escapes}, command finite {bool(np.isfinite(out['u']).all())}, "
+        f"escape tick {esc_ms:.1f} ms (host clock, the whole stack tick), goal reached {reached} in {ticks} ticks; "
+        f"launches: escape K1 {f.escape_engine.launches}, tick K1 {f.engine.launches} -- {card}",
+        flush=True,
+    )
+    if first is not False or out["escaped"] is not True or f.n_escapes != 1 or not np.isfinite(out["u"]).all():
+        raise AssertionError("escape tick: the forced stall did not escape exactly once with a finite command")
+    if not reached or f.escape_engine.launches != 1:
+        raise AssertionError(f"escape tick: reached {reached}, escape launches {f.escape_engine.launches}")
+    launches["K1"] += f.escape_engine.launches + f.engine.launches
+    print(f"launch counters of the fleets: {launches}", flush=True)
+
+    def card_against_cpu():
+        """The small tracking fleet and swarm on the card and on the CPU
+        (the plain versions): max |trajectory difference| per fleet."""
+        out = {}
+        for name, make_prob, build, make_roll in (
+            (
+                "tracking fleet",
+                tracking_problem,
+                lambda p, d: arc_path_fleet(p, FLEET_SMALL_B, n_waypoints=64, seed=0, device=d),
+                lambda p, d: make_tracking_fleet_rollout(p, FLEET_SMALL_TICKS, dt, record=True, device=d),
+            ),
+            (
+                "swarm",
+                swarm_problem,
+                lambda p, d: grid_swap_swarm(p, side=4, pitch=2.0, device=d),
+                lambda p, d: make_swarm_rollout(p, FLEET_SMALL_TICKS, dt, k_neighbors=4, record=True, device=d),
+            ),
+        ):
+            trajs = []
+            for d in (dev, torch.device("cpu")):
+                p = make_prob(d)
+                trajs.append(make_roll(p, d)(*build(p, d)).trajectories.cpu())
+            out[name] = float((trajs[0] - trajs[1]).abs().max())
+        return out
+
+    return launches, checks, card_against_cpu
 
 
 def main_path_inputs(dev):
@@ -858,6 +1161,12 @@ def main() -> int:
     # (nothing is timed on the card meanwhile), costliest first
     comp_launches, comp_checks = composites_phase(dev, card, inp)
     lap("composites")
+    # ---- the fleets and the sampling engines, each rollout counted on its
+    # own run; their first and last ticks' kernel calls and the hybrid's
+    # join the composites' in the plain checks
+    fleet_launches, fleet_checks, card_against_cpu = fleets_phase(dev, card, inp)
+    comp_checks += fleet_checks
+    lap("fleets")
     bank_jobs = {
         "K1 headline": plain_job(k1, th_main, U0, with_counters=True),
         "K1 obstacle-active": plain_job(k1, th_obs, U0, with_counters=True),
@@ -882,6 +1191,17 @@ def main() -> int:
         if dU_ref > LIVE[0] or dc_ref > LIVE[1]:
             raise AssertionError("K1 disagrees with make_solver")
         lap("K1 against make_solver")
+        # ---- the small fleets on the card against the same on the CPU
+        apart = card_against_cpu()
+        print(
+            f"fleets on the card against the CPU (B={FLEET_SMALL_B}, {FLEET_SMALL_TICKS} ticks, plain versions on "
+            f"the CPU): max |trajectory difference| {apart} (band {FLEET_CPU_ATOL}; not bit-equality: the plant's "
+            "RK4 and the reference windows run sin/cos in CUDA's libm on the card and the CPU's libm on the host)",
+            flush=True,
+        )
+        if max(apart.values()) > FLEET_CPU_ATOL:
+            raise AssertionError(f"fleets: the card and the CPU apart by {apart}")
+        lap("fleets against the CPU")
         results = [pending[i].get(timeout=max(1.0, deadline - time.perf_counter())) for i in range(len(jobs))]
     plain = {}  # the main path's banks (with their counters, which the
     # counted reruns of the roofline path must match)
@@ -907,14 +1227,14 @@ def main() -> int:
             rows.append(str(th["x0"].shape[0]))
             secs.append(f"{sec:.1f}")
         line = (
-            f"composites {name}: its {len(calls)} {kname} call(s) of {', '.join(rows)} rows bit-equal to the plain "
+            f"{name}: its {len(calls)} {kname} call(s) of {', '.join(rows)} rows bit-equal to the plain "
             f"version on the same inputs {'yes' if not unequal else 'no: ' + ', '.join(unequal)} "
             f"({', '.join(secs)} s in their workers)"
         )
         print(line, flush=True)
         if unequal:
             raise AssertionError(f"{line}: differs from the plain version")
-    lap("plain versions of the banks and composites")
+    lap("plain versions of the banks, composites and fleets")
     # ---- 6. timing, kernel and plain version alternating
     times = {}
     for name, s, th in (("K1", k1, th_main), ("K2", k2, th_trk)):
@@ -1078,7 +1398,7 @@ def main() -> int:
             "route": "cuda",
             "source": "ros2_mpc_tpu_torch/csrc/point_stab.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:119",
-            "launches": launches["K1"] + loop_launches["K1"] + comp_launches["K1"],
+            "launches": launches["K1"] + loop_launches["K1"] + comp_launches["K1"] + fleet_launches["K1"],
             "max_abs_err": max(err1, tick_errs["K1 tick"], loop_err, comp_err["K1"]),
             "ms": times["K1"][0],
             "plain_ms": times["K1"][1],
@@ -1091,7 +1411,7 @@ def main() -> int:
             "route": "cuda",
             "source": "ros2_mpc_tpu_torch/csrc/tracking.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:769",
-            "launches": launches["K2"] + loop_launches["K2"] + comp_launches["K2"],
+            "launches": launches["K2"] + loop_launches["K2"] + comp_launches["K2"] + fleet_launches["K2"],
             "max_abs_err": max(err2, tick_errs["K2 tick"], loop_err, comp_err["K2"]),
             "ms": times["K2"][0],
             "plain_ms": times["K2"][1],

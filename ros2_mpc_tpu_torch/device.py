@@ -18,3 +18,19 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_constant(values):
+    """``const(device, dtype=torch.float32)``: the vector ``values`` on
+    ``device``, copied from the host once for each device and dtype and
+    reused after. A copy on every call would block the host each time, a
+    sync that a device loop (a fleet's ticks) must not make."""
+    cache = {}
+
+    def const(device, dtype=torch.float32):
+        key = (torch.device(device), dtype)
+        if key not in cache:
+            cache[key] = torch.tensor(values, dtype=dtype, device=device)
+        return cache[key]
+
+    return const

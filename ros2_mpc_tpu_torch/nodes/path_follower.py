@@ -22,6 +22,12 @@ The engines are K2 at B=1 for tracking and K1 at B=1, horizon 2N, for the
 handoff (:mod:`ros2_mpc_tpu_torch.solver.cuda_kernel`: on a CUDA device the
 kernels, on the CPU their plain versions). The warm start stays on the
 device; a tick reads back one small vector.
+
+``escape_after`` arms the basin-escape recovery, as the point follower's:
+after that many consecutive non-converged warm-started tracking solves, one
+tick runs the multistart engine on the tracking OCP (MPPI plus the arc
+seeds, polished as one K2 bank) and re-seeds the warm start. Handoff solves
+never escape: they are cold-started and short-lived by design.
 """
 
 from __future__ import annotations
@@ -29,11 +35,13 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from ..config import Params
 from ..device import resolve_device
 from ..solver import SolverSettings, make_point_stabilization, make_tracking
 from ..solver.cuda_kernel import make_cuda_point_stab_solver, make_cuda_tracking_solver, single_scenario
+from ..solver.mppi import MppiSettings, make_multistart_solver
 from ..solver.packed import make_packed_point_stab, make_packed_tracking, read_tick
 from ..utils.telemetry import Telemetry
 from .bus import MessageBus
@@ -68,11 +76,9 @@ class PathFollowerNode:
         device=None,
     ):
         """``device``: where the problems, the warm start and the solves live
-        (``None``: the card). ``escape_after`` (the JAX package's basin-escape
-        recovery) needs the multistart engine, which is not ported yet: any
-        value but None raises NotImplementedError."""
-        if escape_after is not None:
-            raise NotImplementedError("escape_after needs the multistart engine, not ported yet")
+        (``None``: the card). ``escape_after``: the opt-in basin-escape
+        recovery (module docstring); its engine is built and run once here,
+        so the first escaping tick pays no build."""
         self.device = resolve_device(device)
         self.params = params
         self.reference_parity = reference_parity
@@ -112,6 +118,26 @@ class PathFollowerNode:
         # quirk #9: the reference hardcodes a 0.15 m latch, ignoring its own
         # goal_threshold param (0.2); corrected mode honors the param.
         self.goal_radius = params.tracking_goal_radius if reference_parity else params.goal_threshold
+        self.escape_after = escape_after
+        self._stall = 0
+        self._stall_goal = None  # stall evidence is per goal
+        self.n_escapes = 0
+        if escape_after is not None:
+            # the full schedule for the polish: cold arc seeds cannot
+            # converge on the realtime profile (see point_follower.py)
+            escape = make_multistart_solver(
+                self.problem.ocp, SolverSettings(), MppiSettings(n_samples=128, n_iters=8),
+                kind="tracking", device=self.device,
+            )
+            self.escape_engine = escape.engines[0]  # K2 over the K+2 starts
+            self._solve_escape = make_packed_tracking(self.problem, params, solve_fn=single_scenario(escape))[0]
+            self._escape_gen = torch.Generator(device=self.device).manual_seed(0)  # advances every escape
+            far = np.full(params.n_obstacle_points, 100.0)
+            self._solve_escape(
+                self._pack(np.zeros(3), np.zeros((self.N, 3)), np.zeros((self.N, 2)), far, far),
+                self.problem.default_u0,
+                torch.Generator(device=self.device).manual_seed(1),
+            )
         self.u_warm = self.problem.default_u0
         self.u_last = np.zeros(2)
         self.goal_flag = False
@@ -126,6 +152,12 @@ class PathFollowerNode:
         goal = self.goal_listener.get_goal()
         if goal is None:
             return {"status": "waiting_for_goal"}
+        if self.escape_after is not None:
+            # per-goal stall evidence (see point_follower.py)
+            gk = (round(float(goal[0]), 3), round(float(goal[1]), 3))
+            if gk != self._stall_goal:
+                self._stall_goal = gk
+                self._stall = 0
         scan_data, angles = self.laser_node.get_scan()
         pos, ori = self.odom_node.get_states()
         if scan_data is None or pos is None:
@@ -157,6 +189,7 @@ class PathFollowerNode:
         _, path_velocity, path_omega = path_motion_profile(path_xy, p.dt)
         x0 = np.array([pos[0], pos[1], ori[2]])
         goal_dist = float(np.linalg.norm(x0[:2] - goal[:2]))
+        escaping = tracked = False
         t0 = time.perf_counter()
         if goal_dist < self.handoff_radius:
             # point-stabilization handoff on the exact goal pose
@@ -172,9 +205,18 @@ class PathFollowerNode:
             )
             packed = self._pack(x0, pxf, puf, x_obs, y_obs)
             U0 = self.problem.default_u0 if self.reference_parity else self.u_warm
-            sol, u_warm_next = self._solve(packed, U0)
+            escaping = self.escape_after is not None and self._stall >= self.escape_after
+            if escaping:
+                sol, u_warm_next = self._solve_escape(packed, U0, self._escape_gen)
+                self.n_escapes += 1
+                self._stall = 0
+            else:
+                sol, u_warm_next = self._solve(packed, U0)
+                tracked = True
         u, cost, kkt, converged = read_tick(sol)
         solve_s = time.perf_counter() - t0
+        if self.escape_after is not None and tracked:
+            self._stall = 0 if converged else self._stall + 1
         if not np.all(np.isfinite(u)):
             u = self.u_last  # graceful degradation, not a crash
         else:
@@ -201,5 +243,6 @@ class PathFollowerNode:
             "u": u,
             "solve_s": solve_s,
             "kkt": kkt,
+            "escaped": escaping,
         }
 

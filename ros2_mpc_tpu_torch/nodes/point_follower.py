@@ -7,18 +7,26 @@ The engine is K1 at B=1: every tick solves through
 :func:`~ros2_mpc_tpu_torch.solver.cuda_kernel.make_cuda_point_stab_solver`
 (on a CUDA device the kernel, on the CPU its plain version). The warm start
 stays on the device; a tick reads back one small vector (the first control,
-cost, KKT residual and convergence flag)."""
+cost, KKT residual and convergence flag).
+
+``escape_after`` arms the basin-escape recovery: after that many
+consecutive non-converged solves toward one goal, one tick runs the
+multistart engine (:func:`~ros2_mpc_tpu_torch.solver.mppi.make_multistart_solver`:
+MPPI plus the arc seeds, polished as one K1 bank) and re-seeds the warm
+start."""
 
 from __future__ import annotations
 
 import time
 
 import numpy as np
+import torch
 
 from ..config import Params
 from ..device import resolve_device
 from ..solver import SolverSettings, make_point_stabilization
 from ..solver.cuda_kernel import make_cuda_point_stab_solver, single_scenario
+from ..solver.mppi import MppiSettings, make_multistart_solver
 from ..solver.packed import make_packed_point_stab, read_tick
 from ..utils.telemetry import Telemetry
 from .bus import MessageBus
@@ -53,11 +61,9 @@ class PointFollowerNode:
         device=None,
     ):
         """``device``: where the problem, the warm start and the solves live
-        (``None``: the card). ``escape_after`` (the JAX package's basin-escape
-        recovery) needs the multistart engine, which is not ported yet: any
-        value but None raises NotImplementedError."""
-        if escape_after is not None:
-            raise NotImplementedError("escape_after needs the multistart engine, not ported yet")
+        (``None``: the card). ``escape_after``: the opt-in basin-escape
+        recovery (module docstring); its engine is built and run once here,
+        so the first escaping tick pays no build."""
         self.device = resolve_device(device)
         self.params = params
         self.reference_parity = reference_parity
@@ -80,6 +86,28 @@ class PointFollowerNode:
         self._solve, self._pack = make_packed_point_stab(
             self.problem, params, solve_fn=single_scenario(self.engine)
         )
+        self.escape_after = escape_after
+        self._stall = 0
+        self._stall_goal = None  # stall evidence is per goal
+        self.n_escapes = 0
+        if escape_after is not None:
+            # The full iLQR schedule for the polish, not the follower's
+            # realtime profile: the arc seeds start cold, and a 12-iteration
+            # schedule cannot converge them, so every candidate would come
+            # back non-converged and the escape would keep the warm start it
+            # had. A rare recovery tick can afford it.
+            escape = make_multistart_solver(
+                self.problem.ocp, SolverSettings(), MppiSettings(n_samples=128, n_iters=8), device=self.device
+            )
+            self.escape_engine = escape.engines[0]  # K1 over the K+2 starts
+            self._solve_escape = make_packed_point_stab(self.problem, params, solve_fn=single_scenario(escape))[0]
+            self._escape_gen = torch.Generator(device=self.device).manual_seed(0)  # advances every escape
+            far = np.full(params.n_obstacle_points, 100.0)
+            self._solve_escape(
+                self._pack(np.zeros(3), np.zeros(3), far, far),
+                self.problem.default_u0,
+                torch.Generator(device=self.device).manual_seed(1),
+            )
         self.u_warm = self.problem.default_u0
         self.u_last = np.zeros(2)
         self.goal_flag = False
@@ -90,6 +118,13 @@ class PointFollowerNode:
         goal = self.goal_listener.get_goal()
         if goal is None:
             return {"status": "waiting_for_goal"}
+        if self.escape_after is not None:
+            # a stale stall count from an earlier (perhaps unreachable) goal
+            # must not trigger an escape on the first tick to a new one
+            gk = (round(float(goal[0]), 3), round(float(goal[1]), 3))
+            if gk != self._stall_goal:
+                self._stall_goal = gk
+                self._stall = 0
         scan_data, angles = self.laser_node.get_scan()
         pos, ori = self.odom_node.get_states()
         if scan_data is None or pos is None:
@@ -119,14 +154,22 @@ class PointFollowerNode:
 
         packed = self._pack(x0, goal_mpc, x_obs, y_obs)
         U0 = self.problem.default_u0 if self.reference_parity else self.u_warm
+        escaping = self.escape_after is not None and self._stall >= self.escape_after
         t0 = time.perf_counter()
-        sol, u_warm_next = self._solve(packed, U0)
+        if escaping:
+            sol, u_warm_next = self._solve_escape(packed, U0, self._escape_gen)
+            self.n_escapes += 1
+            self._stall = 0
+        else:
+            sol, u_warm_next = self._solve(packed, U0)
         u, cost, kkt, converged = read_tick(sol)
         solve_s = time.perf_counter() - t0
         if not np.all(np.isfinite(u)):
             u = self.u_last
         else:
             self.u_warm = u_warm_next  # device-resident, shifted on the device
+        if self.escape_after is not None and not escaping:
+            self._stall = 0 if converged else self._stall + 1
         self.telemetry.record(solve_s=solve_s, kkt=kkt, cost=cost, converged=converged)
 
         if self.goal_flag:
@@ -145,5 +188,6 @@ class PointFollowerNode:
             "u": u,
             "carrot": goal_mpc,
             "solve_s": solve_s,
+            "escaped": escaping,
         }
 

@@ -1,5 +1,6 @@
 from .batched import make_bank_kkt_polish, make_bank_solver_fast
 from .ilqr import OCP, Solution, SolverSettings, make_solver
+from .mppi import MppiSettings, make_hybrid_solver, make_mppi_solver, make_multistart_solver
 from .multistart_bank import adversarial_saddle_bank, arc_seeds, make_bank_multistart_solver
 from .problems import (
     Problem,
@@ -46,4 +47,8 @@ __all__ = [
     "arc_seeds",
     "make_bank_multistart_solver",
     "adversarial_saddle_bank",
+    "MppiSettings",
+    "make_mppi_solver",
+    "make_hybrid_solver",
+    "make_multistart_solver",
 ]

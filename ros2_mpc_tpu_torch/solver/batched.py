@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 from torch.func import grad, jacrev, vjp, vmap
 
+from ..device import device_constant
 from .ilqr import OCP, Solution, SolverSettings
 
 _F32 = torch.float32
@@ -92,24 +93,19 @@ def _chol_solve(M, rhs):
     """Solve ``M X = rhs`` for an m x m ``M`` (..., m, m) via the unrolled
     Cholesky; ``rhs`` is (..., m, k). A matrix whose factorization shows a
     pivot <= 1e-12 is solved as ``M + 1e3 I`` instead, the 2x2 path's
-    loading. Each matrix is factorized once; only those that lost
-    positive-definiteness are factorized again, loaded (the JAX module
-    factorizes every matrix twice)."""
+    loading. Every matrix is factorized as it is and loaded, and the loaded
+    factor taken where a pivot showed lost positive-definiteness, as the
+    JAX module does: factorizing only the rows that lost it would need their
+    count on the host, a read back every Riccati stage that a fleet's device
+    loop must not make."""
     m = M.shape[-1]
     L, min_piv = _chol_factor(M)
-    bad = (min_piv <= 1e-12).reshape(-1)
-    if bool(bad.any()):
-        rows = torch.nonzero(bad).squeeze(1)
-        eye = torch.eye(m, dtype=M.dtype, device=M.device)
-        L_bad, _ = _chol_factor(M.reshape(-1, m, m)[rows] + 1e3 * eye)
-        shape = min_piv.shape
-        L = [
-            [
-                None if comp is None else comp.reshape(-1).index_copy(0, rows, L_bad[i][k]).reshape(shape)
-                for k, comp in enumerate(row)
-            ]
-            for i, row in enumerate(L)
-        ]
+    bad = min_piv <= 1e-12
+    L_load, _ = _chol_factor(M + 1e3 * torch.eye(m, dtype=M.dtype, device=M.device))
+    L = [
+        [None if comp is None else torch.where(bad, load, comp) for comp, load in zip(row, row_load)]
+        for row, row_load in zip(L, L_load)
+    ]
     y = [None] * m
     for i in range(m):  # forward substitution: L y = rhs
         t = rhs[..., i, :]
@@ -291,12 +287,12 @@ def make_bank_solver_fast(ocp: OCP, settings: SolverSettings = SolverSettings())
     t = _BankTerms(ocp)
     mus = [float(mu) for mu in settings.mu_schedule_np()]
     n_alphas = settings.n_alphas
+    u_lo, u_hi = device_constant(ocp.u_lo), device_constant(ocp.u_hi)
 
     def solve_bank(thetas, U0s):
         B = _bank_size(thetas, U0s)
         dev = U0s.device
-        lo = torch.tensor(ocp.u_lo, dtype=_F32, device=dev)
-        hi = torch.tensor(ocp.u_hi, dtype=_F32, device=dev)
+        lo, hi = u_lo(dev), u_hi(dev)
         alphas = 0.5 ** torch.arange(n_alphas, dtype=_F32, device=dev)
         eps = settings.interior_clip * (hi - lo)
         eps0 = 1e-3 * (hi - lo)
@@ -372,12 +368,12 @@ def make_bank_kkt_polish(
     N, n, m = ocp.horizon, ocp.n_states, ocp.n_controls
     _probe_batch_semantics(ocp.transition, n, m)
     t = _BankTerms(ocp)
+    u_lo, u_hi = device_constant(ocp.u_lo), device_constant(ocp.u_hi)
 
     def polish_bank(thetas, U0s):
         B = _bank_size(thetas, U0s)
         dev = U0s.device
-        lo = torch.tensor(ocp.u_lo, dtype=_F32, device=dev)
-        hi = torch.tensor(ocp.u_hi, dtype=_F32, device=dev)
+        lo, hi = u_lo(dev), u_hi(dev)
         alphas = 0.5 ** torch.arange(n_alphas, dtype=_F32, device=dev)
         eps = 1e-7 * (hi - lo)
         tol_b = bound_tol * (hi - lo)

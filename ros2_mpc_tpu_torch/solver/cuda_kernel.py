@@ -165,6 +165,17 @@ def _bank_config(ocp: OCP, settings: SolverSettings, stage_tol, fast_sincos, wra
 # ------------------------------------------------------------ plain versions
 
 
+def _fold(t):
+    """Sum over the leading (obstacle) axis in slot order from 0.0, as the
+    kernels accumulate: ``torch.sum`` may pair the terms in another order
+    (on the card it does, past four terms), a last-bit difference that the
+    line search can amplify."""
+    acc = t.new_zeros(t.shape[1:])
+    for row in t:
+        acc = acc + row
+    return acc
+
+
 class _Obstacles:
     """``ow * sum_j exp(-r_j^2 * inv_ir2)`` and its derivatives over planes
     ``(2, n_obs, B)``. Cut once to the bank's longest live prefix: the cut
@@ -186,17 +197,17 @@ class _Obstacles:
 
     def value(self, px, py):
         _, _, e = self._e(px, py)
-        return torch.where(self.on, e.sum(0), 0.0)
+        return torch.where(self.on, _fold(e), 0.0)
 
     def terms(self, px, py):
         dx, dy, e = self._e(px, py)
         i2 = self.i2
         out = (
-            (-2.0 * i2 * dx * e).sum(0),
-            (-2.0 * i2 * dy * e).sum(0),
-            (e * (4.0 * i2 * i2 * dx * dx - 2.0 * i2)).sum(0),
-            (e * 4.0 * i2 * i2 * dx * dy).sum(0),
-            (e * (4.0 * i2 * i2 * dy * dy - 2.0 * i2)).sum(0),
+            _fold(-2.0 * i2 * dx * e),
+            _fold(-2.0 * i2 * dy * e),
+            _fold(e * (4.0 * i2 * i2 * dx * dx - 2.0 * i2)),
+            _fold(e * 4.0 * i2 * i2 * dx * dy),
+            _fold(e * (4.0 * i2 * i2 * dy * dy - 2.0 * i2)),
         )
         return tuple(torch.where(self.on, o, 0.0) for o in out)
 
@@ -825,12 +836,14 @@ def make_cuda_tracking_solver(
 
 
 def single_scenario(solve_bank):
-    """``solve(theta, U0) -> Solution`` for one scenario through a bank
-    solve at B=1 (e.g. as ``solve_fn`` of the packed tick). ``solve_bank``
-    is a :class:`CudaBankSolver` built without counters, or its ``plain``."""
+    """``solve(theta, U0, *extra) -> Solution`` for one scenario through a
+    bank solve at B=1 (e.g. as ``solve_fn`` of the packed tick).
+    ``solve_bank`` is a :class:`CudaBankSolver` built without counters, its
+    ``plain``, or any B-leading ``solve_bank(thetas, U0s, *extra)`` (the
+    MPPI family takes a generator as ``extra``)."""
 
-    def solve(theta, U0):
-        sol = solve_bank({k: v[None] for k, v in theta.items()}, U0[None])
+    def solve(theta, U0, *extra):
+        sol = solve_bank({k: v[None] for k, v in theta.items()}, U0[None], *extra)
         return Solution(*(f[0] for f in sol))
 
     return solve

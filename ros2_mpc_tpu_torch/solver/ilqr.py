@@ -65,8 +65,9 @@ class SolverSettings:
     armijo_c1: float = 1e-4
     interior_clip: float = 1e-7  # fraction of (hi-lo) kept as strict slack
     kkt_tol: float = 1e-4
-    # The O(log N)-depth associative-scan Riccati sweep of the JAX package;
-    # not ported yet, make_solver raises when it is set.
+    # the backward sweep through the O(log N)-depth reverse scan of
+    # parallel_riccati.py (regularization on l_uu, no Quu safeguard: the
+    # JAX package's horizon-parallel path)
     horizon_parallel: bool = False
 
     @property
@@ -118,8 +119,6 @@ def make_solver(ocp: OCP, settings: SolverSettings = SolverSettings()):
     ``theta`` is a dict of tensors (initial state, references, obstacle
     vectors, weights), all on ``U0``'s device. The function is composable
     with ``torch.func.vmap(solve)`` for scenario batches."""
-    if settings.horizon_parallel:
-        raise NotImplementedError("horizon_parallel Riccati sweep is not ported yet")
     N, n, m = ocp.horizon, ocp.n_states, ocp.n_controls
     F = ocp.transition
     mus = [float(mu) for mu in settings.mu_schedule_np()]
@@ -199,6 +198,29 @@ def make_solver(ocp: OCP, settings: SolverSettings = SolverSettings()):
                 kffs[k], Ks[k] = kff, K
             return kffs, Ks, dV1, dV2
 
+        def backward_pass_parallel(X, U, mu, reg):
+            """The same sweep through the log-depth LQR scan; the
+            regularization lands on l_uu."""
+            from .parallel_riccati import LQRProblem, lqr_backward_parallel
+
+            d = [stage_derivs(X[k], U[k], k, mu) for k in range(N)]
+            A, B, lx, lu, lxx, lux, luu = (torch.stack(z) for z in zip(*d))
+            luu_reg = luu + reg * eye
+            P_N = hessian(lambda x: ocp.terminal_cost(x, theta))(X[-1]).to(X.dtype)
+            p_N = grad(lambda x: ocp.terminal_cost(x, theta))(X[-1])
+            gains = lqr_backward_parallel(
+                LQRProblem(A=A, B=B, lxx=lxx, lux=lux, luu=luu_reg, lx=lx, lu=lu, P_N=P_N, p_N=p_N)
+            )
+            # the scan's convention is du = -K dx - kff; this solver applies
+            # u + alpha * kff + K dx
+            kff, K = -gains.kff, -gains.K
+            Bt = B.transpose(-1, -2)
+            Qu = lu + (Bt @ gains.p[1:].unsqueeze(-1)).squeeze(-1)
+            Quu = luu_reg + Bt @ gains.P[1:] @ B
+            dV1 = (kff * Qu).sum()
+            dV2 = 0.5 * (kff * (Quu @ kff.unsqueeze(-1)).squeeze(-1)).sum()
+            return list(kff), list(K), dV1, dV2
+
         def feedback_rollout(U, X_old, kffs, Ks, alpha, mu):
             """Closed-loop candidate at step ``alpha``, clipped into the strict
             interior so the barrier stays finite."""
@@ -217,7 +239,8 @@ def make_solver(ocp: OCP, settings: SolverSettings = SolverSettings()):
         reg = torch.tensor(settings.reg_init, dtype=f32, device=dev)
         for mu in mus:
             X, J = rollout_and_cost(U, mu)
-            kffs, Ks, dV1, dV2 = backward_pass(X, U, mu, reg)
+            bwd = backward_pass_parallel if settings.horizon_parallel else backward_pass
+            kffs, Ks, dV1, dV2 = bwd(X, U, mu, reg)
             cands = [feedback_rollout(U, X, kffs, Ks, a, mu) for a in alpha_list]
             U_cands = torch.stack([c[0] for c in cands])
             J_cands = torch.stack([c[1] for c in cands])

@@ -50,14 +50,20 @@ def arc_seeds(ocp: OCP, swing_fracs: tuple = (1.0, 0.5), device=None) -> torch.T
     return torch.stack(seeds)
 
 
-def bank_engine(engine, ocp: OCP, settings: SolverSettings):
+def bank_engine(engine, ocp: OCP, settings: SolverSettings, kind: str = "point_stabilization"):
     """The bank solve ``solve_bank(thetas, U0s) -> Solution`` of ``engine``:
-    a name of :data:`ENGINES` or a callable ``engine(ocp, settings)``."""
+    a name of :data:`ENGINES` or a callable ``engine(ocp, settings)``.
+    ``"cuda"`` is K1 for a point-stabilization OCP and K2 for
+    ``kind="tracking"``."""
     if callable(engine):
         return engine(ocp, settings)
     if engine == "cuda":
-        from .cuda_kernel import make_cuda_point_stab_solver
+        from .cuda_kernel import make_cuda_point_stab_solver, make_cuda_tracking_solver
 
+        if kind == "tracking":
+            return make_cuda_tracking_solver(ocp, settings)
+        if kind != "point_stabilization":
+            raise ValueError(f"engine='cuda' runs K1 (point stabilization) or K2 (tracking), not {kind!r}")
         return make_cuda_point_stab_solver(ocp, settings)
     if engine == "fast":
         from .batched import make_bank_solver_fast

@@ -104,3 +104,39 @@ def read_tick(sol):
     head = torch.cat([sol.U[0], torch.stack([sol.cost, sol.kkt_residual, sol.converged.to(f)])])
     v = head.cpu().numpy()
     return v[:2], float(v[2]), float(v[3]), bool(v[4])
+
+
+def device_tick_rate(problem, n_ticks: int = 64, dt: float = 0.2, *, device=None) -> float:
+    """Seconds per warm control tick with the whole loop on the device: the
+    fleet pattern (solve -> actuate -> shift, no read back inside the loop)
+    on ``random_fleet(B=1024, seed=0)`` through K1
+    (``make_fleet_rollout(..., engine="cuda")``), so the tick latency
+    measured serves 1024 robots at once. The best of 5 timed rollouts after a
+    warm-up, divided by ``n_ticks``; on the card timed with CUDA events.
+
+    ``device=None`` is the card and raises without one; ``device="cpu"``
+    runs K1's plain version on the host clock. Nothing falls back to another
+    engine."""
+    import time
+
+    from ..device import resolve_device
+    from ..parallel.fleet import make_fleet_rollout, random_fleet
+
+    dev = resolve_device(device)
+    rollout = make_fleet_rollout(problem, n_ticks=n_ticks, dt=dt, engine="cuda", device=dev)
+    thetas, U0 = random_fleet(problem, B=1024, seed=0, device=dev)
+    rollout(thetas, U0)  # warm-up: the first call builds the kernels
+    reps = []
+    for _ in range(5):
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            rollout(thetas, U0)
+            end.record()
+            end.synchronize()
+            reps.append(start.elapsed_time(end) / 1e3 / n_ticks)
+        else:
+            t0 = time.perf_counter()
+            rollout(thetas, U0)
+            reps.append((time.perf_counter() - t0) / n_ticks)
+    return float(np.min(reps))

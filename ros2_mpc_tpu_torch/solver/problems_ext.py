@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from ..config import Params
-from ..device import resolve_device
+from ..device import device_constant, resolve_device
 from ..models import bicycle, quadrotor, unicycle_dyn
 from ..ops import costs
 from ..ops.integrators import make_step
@@ -134,12 +134,11 @@ def make_smooth_point_stabilization(
     N = horizon if horizon is not None else params.N
     device = resolve_device(device)
     F = make_step(unicycle_dyn.f, "rk4", params.dt)
-    vw_lim = (v_limit, w_limit)
+    vw_lim = device_constant((v_limit, w_limit))
 
     def _vel_hinge(x, theta):
         # smooth one-sided quadratic: zero inside the limit, (|v|-lim)^2 out
-        lim = torch.tensor(vw_lim, dtype=x.dtype, device=x.device)
-        over = torch.clamp(torch.abs(x[3:5]) - lim, min=0.0)
+        over = torch.clamp(torch.abs(x[3:5]) - vw_lim(x.device, x.dtype), min=0.0)
         return theta["vel_limit_weight"] * torch.sum(over * over)
 
     def stage_cost(x, u, k, theta):
@@ -223,6 +222,7 @@ def make_quadrotor_hover(
     device = resolve_device(device)
     F = make_step(quadrotor.make_f(mass, inertia), "rk4", dt)
     u_hover_list = [mass * quadrotor.GRAVITY, 0.0, 0.0, 0.0]
+    u_hover = device_constant(u_hover_list)
 
     def _errors(x, theta):
         ep = x[0:3] - theta["goal"][0:3]
@@ -231,7 +231,7 @@ def make_quadrotor_hover(
 
     def stage_cost(x, u, k, theta):
         ep, v, phi, th, epsi, w = _errors(x, theta)
-        eu = u - torch.tensor(u_hover_list, dtype=u.dtype, device=u.device)
+        eu = u - u_hover(u.device, u.dtype)
         return (
             theta["Qp"] * torch.sum(ep * ep)
             + theta["Qv"] * torch.sum(v * v)

@@ -185,13 +185,53 @@ def test_global_costmap_file_reload_variant():
 
 
 def test_unported_options_raise():
-    """The mapper map source and the multistart escape wait for their
-    modules (ROADMAP items 13 and 15)."""
+    """The mapper map source waits for its module (ROADMAP item 15) and
+    raises. The multistart escape is ported (the name is kept from when it
+    raised too): with ``escape_after`` each follower builds, and a forced
+    stall makes exactly one escape tick, on the multistart engine (K1 for
+    the point follower, K2 for the path follower, their plain versions
+    here), whose generator advances; the command stays finite."""
     with pytest.raises(NotImplementedError):
         stack(map_source="mapper")
-    for node in (PointFollowerNode, PathFollowerNode):
-        with pytest.raises(NotImplementedError):
-            node(stack().bus, escape_after=3, device="cpu")
+    for follower, kind in (("point", "point_stab"), ("tracking", "tracking")):
+        s = stack(follower, follower_kwargs=dict(escape_after=3))
+        node = s.follower
+        assert node.escape_engine.kind == kind
+        s.publish_goal(*GOAL)
+        s.global_planner.tick()
+        assert s.tick()["control"]["escaped"] is False
+        state = node._escape_gen.get_state().clone()
+        node._stall = 99  # force the stall detector past the threshold
+        out = s.tick()["control"]
+        assert out["escaped"] is True and node.n_escapes == 1
+        assert np.all(np.isfinite(out["u"]))
+        assert node._stall == 0  # reset by the escape
+        assert not torch.equal(node._escape_gen.get_state(), state)  # the generator moved on
+        assert s.tick()["control"]["escaped"] is False
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("follower", ["point", "tracking"])
+def test_follower_escape_recovery_reaches_the_goal(follower):
+    """tests/test_mppi.py's escape runs: a forced stall triggers one escape
+    tick, the command stays finite, and the robot still reaches the goal
+    (point: goal (0.4, -1.6), at most 250 ticks; tracking: (1, -1), at most
+    300; horizon 12). 45-60 plain ticks each: 36-51 s alone on a CPU and
+    70-85 s beside three other test workers, hence slow."""
+    s = stack(follower, follower_kwargs=dict(escape_after=3))
+    node = s.follower
+    s.publish_goal(*((0.4, -1.6) if follower == "point" else GOAL))
+    s.global_planner.tick()
+    assert s.tick()["control"].get("escaped") is False
+    node._stall = 99
+    out = s.tick()["control"]
+    assert out["escaped"] is True and node.n_escapes == 1
+    assert np.all(np.isfinite(out["u"]))
+    assert node._stall in (0, 1)
+    reached = any(
+        s.tick()["control"].get("status") == "goal_reached" for _ in range(250 if follower == "point" else 300)
+    )
+    assert reached
 
 
 def test_stack_runs_on_the_card_by_default(monkeypatch):

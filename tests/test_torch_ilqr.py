@@ -151,6 +151,16 @@ def test_settings_presets_match_jax():
 
 
 def test_horizon_parallel_is_not_ported_yet():
-    prob = ts.make_point_stabilization(T_PARAMS, horizon=N, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ts.make_solver(prob.ocp, ts.SolverSettings(horizon_parallel=True))
+    """The horizon-parallel sweep is ported (solver/parallel_riccati.py; the
+    name is kept from when make_solver refused it): the port's
+    ``make_solver(horizon_parallel=True)`` against the JAX package's on the
+    live-obstacle bank, at the live band."""
+    j_par = js.SolverSettings(horizon_parallel=True, **{k: getattr(J_FAST, k) for k in ("barrier_stages", "iters_per_stage", "n_alphas")})
+    t_par = ts.SolverSettings(horizon_parallel=True, **{k: getattr(T_FAST, k) for k in ("barrier_stages", "iters_per_stage", "n_alphas")})
+    jprob = js.make_point_stabilization(PARAMS, horizon=N, reference_parity=False, settings=j_par)
+    tprob = ts.make_point_stabilization(T_PARAMS, horizon=N, reference_parity=False, settings=t_par, device="cpu")
+    jthetas = jax.vmap(jprob.make_theta)(*(jnp.asarray(a) for a in _point_inputs(1, obstacles=True)))
+    ref = jax.jit(jax.vmap(jprob.solve))(jthetas, jnp.zeros((B, N, 2)))
+    got = solution_to_numpy(torch.func.vmap(tprob.solve)(theta_from_numpy(jthetas, "cpu"), torch.zeros(B, N, 2)))
+    np.testing.assert_allclose(got.U, np.asarray(ref.U), atol=LIVE[0])
+    np.testing.assert_allclose(got.cost, np.asarray(ref.cost), rtol=LIVE[1])
