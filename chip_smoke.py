@@ -66,6 +66,28 @@ last ticks' kernel calls and the hybrid's join the plain checks, and a
 16-robot tracking fleet and swarm on the card must stay within 2e-3 of the
 same rollouts on the CPU.
 
+Then the autonomy phase (``ops/mapping.py``, ``nodes/mapper.py``,
+``planner/wavefront.py``, ``nodes/explorer.py``, ``nodes/live.py``,
+``nodes/multiproc.py``, ``compat.py``): 30 simulator scans folded into the
+240x240 log-odds grid on the card and on the CPU (the trinary grids must
+agree on 99.9% of the cells); navigate-while-mapping
+(``build_sim_stack(map_source="mapper")``, point follower, horizon 12, from
+(-1, -1, 0) to (3.5, -1.8), at most 500 ticks: reached without collision
+within 1.25x the JAX package's 150 ticks, K1 launched on every solve); the
+frontier exploration of tests/test_explorer.py (safety stop 0.22 m, at
+most 2,500 ticks: complete, >= 3 goals, unknown < 0.6, free > 0.25, no
+collision); in both runs five K1 solves (B=1, N=12), spread over the run,
+re-solved through K1's plain version and bit-equal to it; the wavefront on
+the planner's weights of the synthetic map (equal to the CPU's field, the
+start's value the A* cost), one field and 64 goals at once; one
+``PointStabilizationMpc`` and one ``TrackingMpc`` ``perform_mpc`` on the
+card against CPU copies (U within 5e-4; both in worker processes beside
+the runs above); then
+``run_live`` (30 s budget: the goal reached, no control miss) and
+``run_multiprocess`` with every role on the card (60 s budget: the goal
+reached, no role failed). The K1 launches of the in-process runs join the
+``kernels`` line.
+
 K1 and K2 run one scenario on a group of lanes; each geometry line is the
 kernel's own, and the wrapper's pre-build mirror of it must agree. Each
 kernel is held against its plain PyTorch version on the same inputs on the
@@ -177,6 +199,30 @@ FLEET_SMALL_B, FLEET_SMALL_TICKS, FLEET_CPU_ATOL = 16, 8, 2e-3
 # escape_after=3 at horizon 12, a forced stall, goal (0.4, -1.6), at most
 # 250 ticks after it.
 HYBRID_B, ESCAPE_GOAL, ESCAPE_MAX_TICKS = 1024, (0.4, -1.6), 250
+# The autonomy phase. The JAX package's numbers on the same scenarios (its
+# build_sim_stack and ExplorerNode on the CPU, the setups of
+# tests/test_mapper.py::test_navigate_while_mapping and
+# tests/test_explorer.py::test_autonomous_exploration_maps_the_room):
+# navigate-while-mapping from (-1, -1, 0) to (3.5, -1.8), horizon 12, reaches
+# the goal in 150 ticks with 0.6167 of the 240x240 map unknown and 339 wall
+# cells on /map; the exploration (safety stop 0.22 m) completes after 1640
+# ticks with 7 goals, unknown share 0.4524 and free share 0.5353.
+JAX_NWM = {"ticks": 150, "unknown": 0.6167, "walls": 339}
+JAX_EXPLORE = {"ticks": 1640, "goals": 7, "unknown": 0.4524, "free": 0.5353}
+NWM_START, NWM_GOAL, NWM_HORIZON, NWM_MAX_TICKS, NWM_TICK_BAND = (-1.0, -1.0, 0.0), (3.5, -1.8), 12, 500, 1.25
+EXPLORE_MAX_TICKS, EXPLORE_SAFETY_STOP = 2500, 0.22
+# LOOP_RECHECK K1 solves of each run (B=1, N=12) re-solved through the plain
+# version, one every NWM_RECHECK_EVERY / EXPLORE_RECHECK_EVERY, so that the
+# kept solves spread over the run (obstacles from the mapped walls included)
+NWM_RECHECK_EVERY, EXPLORE_RECHECK_EVERY = 30, 300
+# the mapper on the card against the CPU: 30 (scan, pose) pairs of the
+# simulator (360 beams) into the 240x240 grid; the scatter's accumulation
+# order is not fixed on CUDA, so a cell may differ in its last bit, and the
+# trinary grid must agree on MIN_TRINARY_AGREEMENT of the cells
+MAPPER_SCANS, MIN_TRINARY_AGREEMENT = 30, 0.999
+WAVE_GOALS = 64  # batched_distance_fields' goals on the synthetic map
+LIVE_DURATION, MULTIPROC_DURATION = 30.0, 60.0  # run_live and run_multiprocess budgets [s]
+COMPAT_N = 10  # tests/test_compat.py's horizon
 
 
 def headline_bank(rng, B):
@@ -374,18 +420,55 @@ def tick_paths(inp, k1_tick, k2_tick):
 
 class Recorder:
     """Wraps a follower's packed solve: counts its calls, keeps the inputs
-    and Solution of the first ``keep`` and the last Solution."""
+    and Solution of ``keep`` calls (one every ``every``, from the first) and
+    the last Solution."""
 
-    def __init__(self, solve, keep=5):
-        self.solve, self.keep, self.calls, self.kept, self.last = solve, keep, 0, [], None
+    def __init__(self, solve, keep=5, every=1):
+        self.solve, self.keep, self.every, self.calls, self.kept, self.last = solve, keep, every, 0, [], None
 
     def __call__(self, vec, U0):
         sol, U_next = self.solve(vec, U0)
+        if self.calls % self.every == 0 and len(self.kept) < self.keep:
+            self.kept.append((vec, U0, sol))
         self.calls += 1
         self.last = sol
-        if len(self.kept) < self.keep:
-            self.kept.append((vec, U0, sol))
         return sol, U_next
+
+
+def hold_kept(label, rec, plain):
+    """Re-solve each solve ``rec`` kept through ``plain`` (the packed solve
+    over the engine's plain version) on the same inputs; raises unless every
+    field of each Solution is bit-equal. Returns max |dU|."""
+    import torch
+
+    err, unequal = 0.0, []
+    for i, (vec, U_in, sol) in enumerate(rec.kept):
+        ref, _ = plain(vec, U_in)
+        err = max(err, float((sol.U - ref.U).abs().max()))
+        fields = ("U", "X", "cost", "kkt_residual", "n_iters")
+        unequal += [f"solve {i} {k}" for k in fields if not torch.equal(getattr(sol, k), getattr(ref, k))]
+    which = f"first {len(rec.kept)} solves" if rec.every == 1 else f"{len(rec.kept)} solves (one in {rec.every})"
+    print(f"{label}: {which} bit-equal to the plain version {'yes' if not unequal else unequal}")
+    if unequal:
+        raise AssertionError(f"{label}: {unequal}")
+    return err
+
+
+def record_point_follower(f, every):
+    """Wraps a point follower's packed solve in a Recorder that keeps
+    LOOP_RECHECK solves, one every ``every``. Returns (Recorder, the packed
+    solve over its engine's plain version)."""
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import single_scenario
+    from ros2_mpc_tpu_torch.solver.packed import make_packed_point_stab
+
+    f._solve = rec = Recorder(f._solve, keep=LOOP_RECHECK, every=every)
+    return rec, make_packed_point_stab(f.problem, f.params, solve_fn=single_scenario(f.engine.plain))[0]
+
+
+def stage_p50s(stack):
+    """A SimStack's stage p50s in ms: map source and local costmap, planner,
+    follower, plant and sensors."""
+    return {k: round(stack.telemetry.percentiles(f"{k}_s")["p50"] * 1e3, 3) for k in ("costmap", "plan", "control", "plant")}
 
 
 def closed_loop(dev, follower):
@@ -439,10 +522,7 @@ def closed_loop_phase(dev, card):
         f = stack.follower
         solves = len(f.telemetry.series["solve_s"])
         sp, tp = f.telemetry.percentiles("solve_s"), stack.telemetry.percentiles("tick_s")
-        stages = {
-            k: round(stack.telemetry.percentiles(f"{k}_s")["p50"] * 1e3, 3)
-            for k in ("costmap", "plan", "control", "plant")
-        }
+        stages = stage_p50s(stack)
         launched = {name: e.launches for name, (e, _, _) in loop_paths.items()}
         calls = {name: rec.calls for name, (_, rec, _) in loop_paths.items()}
         print(
@@ -460,18 +540,7 @@ def closed_loop_phase(dev, card):
             raise AssertionError(f"closed loop {follower}: launches {launched} for solves {calls} of {solves}")
         for name, (engine, rec, plain) in loop_paths.items():
             loop_launches[name[:2]] += launched[name]
-            unequal = []
-            for i, (vec, U_in, sol) in enumerate(rec.kept):
-                ref, _ = plain(vec, U_in)
-                loop_err = max(loop_err, float((sol.U - ref.U).abs().max()))
-                fields = ("U", "X", "cost", "kkt_residual", "n_iters")
-                unequal += [f"solve {i} {k}" for k in fields if not torch.equal(getattr(sol, k), getattr(ref, k))]
-            print(
-                f"closed loop {follower} {name} (N={engine.cfg.N}): first {len(rec.kept)} solves bit-equal "
-                f"to the plain version {'yes' if not unequal else unequal}"
-            )
-            if unequal:
-                raise AssertionError(f"closed loop {follower} {name}: {unequal}")
+            loop_err = max(loop_err, hold_kept(f"closed loop {follower} {name} (N={engine.cfg.N})", rec, plain))
             if name == "K1 handoff":  # the 2N geometry at B=1
                 check_geometry("K1 handoff", engine, 1)
         # one tick with a NaN goal: no raise, no hang, a finite command, and
@@ -977,6 +1046,282 @@ def fleets_phase(dev, card, inp):
     return launches, checks, card_against_cpu
 
 
+def compat_calls(device):
+    """One ``PointStabilizationMpc.perform_mpc`` and one
+    ``TrackingMpc.perform_mpc`` (tests/test_compat.py's inputs, corrected
+    parity off, N=10) on ``device``: ({name: outputs}, {name: host ms})."""
+    import torch
+
+    from ros2_mpc_tpu_torch import compat
+    from ros2_mpc_tpu_torch.config import Params
+
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(4)  # a worker beside the card's phase
+    ts = np.arange(1, COMPAT_N + 1) * 0.2
+    pf = np.stack([0.15 * ts, np.zeros(COMPAT_N), np.zeros(COMPAT_N)], axis=1).reshape(-1, 1)
+    puf = np.tile([0.15, 0.0], (COMPAT_N, 1)).reshape(-1, 1)
+    calls = {
+        "PointStabilizationMpc": (np.array([0.0, 0.0, 0.0]), np.array([1.0, 0.0, 0.0])),
+        "TrackingMpc": (np.zeros(3), pf, puf),
+    }
+    out, ms = {}, {}
+    for name, args in calls.items():
+        mpc = getattr(compat, name)(Params(), horizon=COMPAT_N, device=device)
+        t0 = time.perf_counter()
+        res = mpc.perform_mpc(np.zeros((2, COMPAT_N)), *args)  # ends on a read back
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        out[name] = res if isinstance(res, tuple) else (res,)
+    return out, ms
+
+
+def autonomy_phase(dev, card):
+    """Navigate-while-mapping, frontier exploration, the wavefront planner,
+    the live and the multi-process graphs and the compat adapters through
+    the port's entry points on the card (module docstring). Raises on any
+    failed check. Returns ({"K1": launches, "K2": launches} of the in-process
+    runs, max |dU| of K1's kept solves against its plain version)."""
+    import torch
+
+    from ros2_mpc_tpu_torch.config import Params
+    from ros2_mpc_tpu_torch.nodes import live
+    from ros2_mpc_tpu_torch.nodes.bus import MessageBus
+    from ros2_mpc_tpu_torch.nodes.explorer import ExplorerNode
+    from ros2_mpc_tpu_torch.nodes.launch import build_sim_stack
+    from ros2_mpc_tpu_torch.nodes.multiproc import run_multiprocess
+    from ros2_mpc_tpu_torch.nodes.sim import Simulator
+    from ros2_mpc_tpu_torch.nodes.topics import MapSubscriber
+    from ros2_mpc_tpu_torch.ops import costmap as costmapops
+    from ros2_mpc_tpu_torch.ops import grid as gridops
+    from ros2_mpc_tpu_torch.ops.mapping import logodds_update, occupancy_probability
+    from ros2_mpc_tpu_torch.planner import astar_path, wavefront
+    from ros2_mpc_tpu_torch.utils import pgm
+
+    launches = {"K1": 0, "K2": 0}
+    cpu = torch.device("cpu")
+    # the compat adapters run in two workers meanwhile, on the card and on
+    # CPU copies (make_solver is bound by its dispatch on the host: ~10-35 s
+    # a call on either); collected before the wall-clock graphs
+    with multiprocessing.get_context("spawn").Pool(2) as pool:  # terminated on exit
+        compat_runs = {d: pool.apply_async(compat_calls, (d,)) for d in (str(dev), "cpu")}
+        # ---- the mapper: the same scans folded on the card and on the CPU
+        sim = Simulator(MessageBus(), pgm.synthetic_indoor_map(), dict(pgm.DEFAULT_MAP_INFO), device=dev)
+        rng = np.random.default_rng(9)
+        pairs = []
+        for k in range(MAPPER_SCANS):
+            pose = np.array([-1.6 + 0.17 * k, -1.0 + rng.uniform(-0.4, 0.4), rng.uniform(-np.pi, np.pi)], np.float32)
+            sim.pose = torch.from_numpy(pose).to(dev)
+            sim.publish_scan()
+            pairs.append((np.asarray(sim.bus.latest("/scan")[0].ranges, dtype=np.float32), pose))
+        grids = []  # the card's, then the CPU's
+        for d in (dev, cpu):
+            L, origin = torch.zeros(240, 240, device=d), torch.tensor([-6.0, -6.0], device=d)
+            on = [(torch.from_numpy(r).to(d), torch.from_numpy(p).to(d)) for r, p in pairs]
+            logodds_update(L, *on[0][::-1], 360, -np.pi, np.pi, origin, 0.05, 3.5)  # warm-up, discarded
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r, p in on:
+                L = logodds_update(L, p, r, 360, -np.pi, np.pi, origin, 0.05, 3.5)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            fold_ms = (time.perf_counter() - t0) * 1e3 / MAPPER_SCANS
+            p = occupancy_probability(L).cpu().numpy()
+            grids.append((L.cpu(), np.where(p >= 0.65, 100, np.where(p <= 0.35, 0, -1)), fold_ms))
+        (Lg, occ_g, ms_g), (Lc, occ_c, ms_c) = grids
+        n_apart = int(((Lg - Lc).abs() > 1e-5).sum())
+        agree = float((occ_g == occ_c).mean())
+        print(
+            f"autonomy mapper ({MAPPER_SCANS} scans of 360 beams into 240x240, card against CPU): {n_apart} cells apart "
+            f"by more than 1e-5, max |dL| {float((Lg - Lc).abs().max()):.3e}, trinary agreement {agree:.6f} (band "
+            f"{MIN_TRINARY_AGREEMENT}); {(occ_g == 100).sum()} wall and {(occ_g == 0).sum()} free cells; "
+            f"{ms_g:.3f} ms a fold on the card (host clock to a sync), {ms_c:.3f} ms on the CPU -- {card}",
+            flush=True,
+        )
+        if agree < MIN_TRINARY_AGREEMENT:
+            raise AssertionError(f"mapper: the card and the CPU agree on {agree} of the trinary grid")
+
+        # ---- navigate-while-mapping: /map built live by the mapper on the card
+        t0 = time.perf_counter()
+        stack = build_sim_stack(
+            follower="point", horizon=NWM_HORIZON, map_source="mapper", start_pose=NWM_START, device=dev
+        )
+        unknown0 = float((stack.mapper.occupancy() == -1).mean())
+        mapper_s, fold = [], stack.mapper.tick
+
+        def timed_fold():
+            t = time.perf_counter()
+            out = fold()
+            torch.cuda.synchronize()
+            mapper_s.append(time.perf_counter() - t)
+            return out
+
+        stack.mapper.tick = timed_fold
+        f = stack.follower
+        rec, plain = record_point_follower(f, NWM_RECHECK_EVERY)
+        f.engine.launches = 0
+        reached, ticks, pose = stack.run_to_goal(NWM_GOAL, max_ticks=NWM_MAX_TICKS)
+        torch.cuda.synchronize()
+        solves, n_k1 = len(f.telemetry.series["solve_s"]), f.engine.launches
+        collided = stack.sim.in_collision()
+        occ = stack.mapper.occupancy()
+        walls = int((np.asarray(stack.bus.latest("/map")[0].data) == 100).sum())
+        unknown = float((occ == -1).mean())
+        tp, stages = stack.telemetry.percentiles("tick_s"), stage_p50s(stack)
+        print(
+            f"autonomy navigate-while-mapping (point, horizon {NWM_HORIZON}, {NWM_START} to {NWM_GOAL}, /map from the "
+            f"mapper): reached {reached}, ticks {ticks} (JAX package {JAX_NWM['ticks']}), final pose "
+            f"{np.round(pose, 3).tolist()}, collided {collided}; unknown share {unknown:.4f} (at the start {unknown0:.4f}; "
+            f"JAX package {JAX_NWM['unknown']}), wall cells on /map {walls} (JAX package {JAX_NWM['walls']}); K1 launches "
+            f"{n_k1} for {solves} solves; mapper {np.median(mapper_s) * 1e3:.3f} ms a tick (p50, host clock to a sync), "
+            f"stack tick p50 {tp['p50'] * 1e3:.3f} ms (stage p50 {stages}); wall {time.perf_counter() - t0:.1f} s -- {card}",
+            flush=True,
+        )
+        if not reached or collided or ticks > NWM_TICK_BAND * JAX_NWM["ticks"]:
+            raise AssertionError(f"navigate-while-mapping: reached {reached} in {ticks} ticks, collided {collided}")
+        if n_k1 != solves or rec.calls != solves or solves == 0:
+            raise AssertionError(f"navigate-while-mapping: K1 launches {n_k1} for {solves} solves")
+        launches["K1"] += n_k1
+        err = hold_kept(f"autonomy navigate-while-mapping K1 (B=1, N={f.engine.cfg.N})", rec, plain)
+
+        # ---- frontier exploration: no goal, no map (tests/test_explorer.py's setup)
+        t0 = time.perf_counter()
+        stack = build_sim_stack(
+            follower="point", start_pose=NWM_START, horizon=NWM_HORIZON, map_source="mapper",
+            safety_stop=EXPLORE_SAFETY_STOP, device=dev,
+        )
+        explorer = ExplorerNode(stack.bus, stack.mapper, stack.params)
+        f = stack.follower
+        rec, plain = record_point_follower(f, EXPLORE_RECHECK_EVERY)
+        f.engine.launches = 0
+        complete, collisions, ticks = False, 0, 0
+        for ticks in range(EXPLORE_MAX_TICKS):
+            if explorer.tick()["status"] == "complete":
+                complete = True
+                break
+            stack.tick()
+            collisions += stack.sim.in_collision()
+        torch.cuda.synchronize()
+        solves, n_k1 = len(f.telemetry.series["solve_s"]), f.engine.launches
+        occ = stack.mapper.occupancy()
+        unknown, free = float((occ == -1).mean()), float((occ == 0).mean())
+        tp, summary, stages = stack.telemetry.percentiles("tick_s"), explorer.summary(), stage_p50s(stack)
+        print(
+            f"autonomy exploration (safety stop {EXPLORE_SAFETY_STOP} m, at most {EXPLORE_MAX_TICKS} ticks): complete "
+            f"{complete}, ticks {ticks} (JAX package {JAX_EXPLORE['ticks']}), goals {explorer.n_goals} (JAX package "
+            f"{JAX_EXPLORE['goals']}, abandoned {summary['n_abandoned']}), unknown share {unknown:.4f} (JAX package "
+            f"{JAX_EXPLORE['unknown']}), free share {free:.4f} (JAX package {JAX_EXPLORE['free']}), coverage "
+            f"{summary['coverage_m2']:.2f} m^2, collisions {collisions}; K1 launches {n_k1} for {solves} solves; stack "
+            f"tick p50 {tp['p50'] * 1e3:.3f} ms p99 {tp['p99'] * 1e3:.3f} ms (host clock; stage p50 {stages}); wall "
+            f"{time.perf_counter() - t0:.1f} s -- {card}",
+            flush=True,
+        )
+        if not complete or explorer.n_goals < 3 or unknown >= 0.6 or free <= 0.25 or collisions:
+            raise AssertionError("exploration: outside tests/test_explorer.py's bounds")
+        if n_k1 != solves or rec.calls != solves or solves == 0:
+            raise AssertionError(f"exploration: K1 launches {n_k1} for {solves} solves")
+        launches["K1"] += n_k1
+        err = max(err, hold_kept(f"autonomy exploration K1 (B=1, N={f.engine.cfg.N})", rec, plain))
+
+        # ---- the wavefront on the global planner's weights of the synthetic map
+        sub = MapSubscriber(sim.bus)
+        sim.publish_map()
+        image, info = sub.get_map()
+        # GlobalPathPublisherNode.tick's dilation and AStarPlanner2.get_path's weights
+        kernel = Params().map_dilation_kernel
+        occ = costmapops.erode_image(torch.as_tensor(np.ascontiguousarray(image, dtype=np.float32), device=dev), kernel).cpu().numpy()
+        weights = np.select([occ == 1, occ == 0], [255.0, 1.0], occ).astype(np.float32)
+        H, W = weights.shape
+        cell = lambda xy: tuple(int(v) for v in gridops.world_to_map(xy[0], xy[1], (H, W), info["origin"], info["resolution"])[::-1])  # noqa: E731,E501
+        start_rc, goal_rc = cell(NWM_START), cell(NWM_GOAL)
+        w_dev = torch.from_numpy(weights).to(dev)
+        # the field and the sweep count of one relaxation, held equal to
+        # distance_field's and to the CPU's below
+        field, sweeps = wavefront.relax(wavefront.goal_fields((H, W), goal_rc, dev)[0], w_dev, H + W)
+        sweeps = int(sweeps)
+        field_ms = cuda_ms(wavefront.distance_field, w_dev, goal_rc, reps=3)
+        field_cpu = wavefront.distance_field(torch.from_numpy(weights), goal_rc)
+        # a field value charges the weight of each cell a step leaves, A* the
+        # weight of each cell it enters: so the A* search runs from the goal
+        path = astar_path(weights, goal_rc, start_rc)
+        astar_cost = float(sum(weights[r, c] for r, c in path[1:]))
+        free_cells = np.argwhere(weights == 1.0)
+        goals = np.vstack([goal_rc, free_cells[np.random.default_rng(4).choice(len(free_cells), WAVE_GOALS - 1)]])
+        goals_dev = torch.from_numpy(goals).to(dev)
+        fields = wavefront.batched_distance_fields(w_dev, goals_dev)
+        batch_ms = cuda_ms(wavefront.batched_distance_fields, w_dev, goals_dev, reps=3)
+        last_cpu = wavefront.distance_field(torch.from_numpy(weights), tuple(goals[-1]))
+        exact = (
+            torch.equal(field, wavefront.distance_field(w_dev, goal_rc)) and torch.equal(field.cpu(), field_cpu)
+            and torch.equal(fields[0], field) and torch.equal(fields[-1].cpu(), last_cpu)
+        )  # fmt: skip
+        print(
+            f"autonomy wavefront ({H}x{W}, the planner's dilated weights, goal {goal_rc}): {sweeps} sweeps, "
+            f"distance_field {field_ms:.3f} ms, batched_distance_fields of {WAVE_GOALS} goals {batch_ms:.3f} ms (CUDA "
+            f"events, median of 3); equal to the CPU's {exact}; start {start_rc} at {float(field[start_rc]):.1f} against "
+            f"the A* path cost {astar_cost:.1f} (goal to start) -- {card}",
+            flush=True,
+        )
+        if not exact or not np.isclose(float(field[start_rc]), astar_cost, rtol=1e-5):
+            raise AssertionError("wavefront: not the CPU's field or not the A* cost")
+
+        # ---- the compat adapters on the card against their CPU copies
+        (card_out, card_ms), (cpu_out, cpu_ms) = (r.get(timeout=600) for r in compat_runs.values())
+    for name in card_out:
+        dU = float(np.abs(card_out[name][-1] - cpu_out[name][-1]).max())
+        print(
+            f"autonomy compat {name}.perform_mpc (N={COMPAT_N}, make_solver): card {card_ms[name]:.1f} ms, CPU "
+            f"{cpu_ms[name]:.1f} ms (host clock, one call each), max |dU| card against CPU {dU:.3e} (band "
+            f"{LIVE[0]}) -- {card}",
+            flush=True,
+        )
+        if not dU <= LIVE[0]:
+            raise AssertionError(f"compat {name}: the card and the CPU apart by {dU}")
+
+    # ---- the wall-clock live graph through run_live (the stack it builds kept)
+    built, build = [], live.build_live_stack
+
+    def keep(*a, **k):
+        built.append(build(*a, **k))
+        return built[-1]
+
+    live.build_live_stack = keep
+    try:
+        t0 = time.perf_counter()
+        stats = live.run_live(follower="point", duration=LIVE_DURATION, device=dev)
+    finally:
+        live.build_live_stack = build
+    n_k1 = built[0].follower.engine.launches
+    tasks = stats["tasks"]
+    rates = {n: f"{t['rate_hz']:.2f} Hz, misses {t['misses']}, max late {t['max_lateness_s'] * 1e3:.1f} ms" for n, t in tasks.items()}
+    print(
+        f"autonomy live graph (run_live, point, goal {LOOP_GOAL}): goal reached {stats['goal_reached']} after "
+        f"{stats['elapsed_s']:.2f} s (wall {time.perf_counter() - t0:.1f} s with the warm-up), final pose "
+        f"{np.round(stats['final_pose'], 3).tolist()}; K1 launches {n_k1} (control runs {tasks['control']['runs']} "
+        f"and the warm-up); tasks {rates} -- {card}",
+        flush=True,
+    )
+    if not stats["goal_reached"] or tasks["control"]["misses"]:
+        raise AssertionError(f"live graph: goal reached {stats['goal_reached']}, control {tasks['control']}")
+    launches["K1"] += n_k1
+
+    # ---- the multi-process graph, every role on the card
+    t0 = time.perf_counter()
+    stats = run_multiprocess(follower="point", duration=MULTIPROC_DURATION, role_device=dev)
+    roles = {"world": stats["tasks"], **{r: (s or {}).get("tasks") for r, s in stats["roles"].items()}}
+    rates = {r: {n: round(t["rate_hz"], 2) for n, t in ts.items()} if ts else None for r, ts in roles.items()}
+    print(
+        f"autonomy multi-process graph (run_multiprocess, point, roles on {dev}): goal reached "
+        f"{stats['goal_reached']} after {stats['elapsed_s']:.2f} s (wall {time.perf_counter() - t0:.1f} s), final "
+        f"pose {np.round(stats['final_pose'], 3).tolist()}, failed roles {stats['failed_roles']}; rates [Hz] {rates} "
+        f"(the follower role's K1 launches are in its own process, not counted here) -- {card}",
+        flush=True,
+    )
+    if not stats["goal_reached"] or stats["failed_roles"]:
+        raise AssertionError(f"multi-process graph: goal reached {stats['goal_reached']}, failed {stats['failed_roles']}")
+    print(f"launch counters of the autonomy phase: {launches}", flush=True)
+    return launches, err
+
+
 def main_path_inputs(dev):
     """The main path's problems and inputs, all from seeded generators as
     bench.py builds them: the headline, obstacle-active and tracking banks
@@ -1167,6 +1512,10 @@ def main() -> int:
     fleet_launches, fleet_checks, card_against_cpu = fleets_phase(dev, card, inp)
     comp_checks += fleet_checks
     lap("fleets")
+    # ---- navigate-while-mapping, exploration, the wavefront, the live and
+    # multi-process graphs and the compat adapters
+    auto_launches, auto_err = autonomy_phase(dev, card)
+    lap("autonomy")
     bank_jobs = {
         "K1 headline": plain_job(k1, th_main, U0, with_counters=True),
         "K1 obstacle-active": plain_job(k1, th_obs, U0, with_counters=True),
@@ -1398,8 +1747,9 @@ def main() -> int:
             "route": "cuda",
             "source": "ros2_mpc_tpu_torch/csrc/point_stab.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:119",
-            "launches": launches["K1"] + loop_launches["K1"] + comp_launches["K1"] + fleet_launches["K1"],
-            "max_abs_err": max(err1, tick_errs["K1 tick"], loop_err, comp_err["K1"]),
+            "launches": launches["K1"] + loop_launches["K1"] + comp_launches["K1"] + fleet_launches["K1"]
+            + auto_launches["K1"],
+            "max_abs_err": max(err1, tick_errs["K1 tick"], loop_err, comp_err["K1"], auto_err),
             "ms": times["K1"][0],
             "plain_ms": times["K1"][1],
             "bound_ms": bounds["K1 headline"][0],
@@ -1411,7 +1761,8 @@ def main() -> int:
             "route": "cuda",
             "source": "ros2_mpc_tpu_torch/csrc/tracking.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:769",
-            "launches": launches["K2"] + loop_launches["K2"] + comp_launches["K2"] + fleet_launches["K2"],
+            "launches": launches["K2"] + loop_launches["K2"] + comp_launches["K2"] + fleet_launches["K2"]
+            + auto_launches["K2"],
             "max_abs_err": max(err2, tick_errs["K2 tick"], loop_err, comp_err["K2"]),
             "ms": times["K2"][0],
             "plain_ms": times["K2"][1],

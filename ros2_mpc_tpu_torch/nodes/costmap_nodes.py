@@ -136,3 +136,46 @@ class GlobalCostmapNode:
         self.publisher.publish_costmap(inflated, map_info["origin"])
         return {"status": "published", "costmap": inflated}
 
+
+def local_main(argv=None):
+    """Standalone ~10 Hz local-costmap process (local_costmap_publisher.py:38)."""
+    from .live import single_node_main
+
+    return single_node_main(
+        lambda bus, params, device: LocalCostmapNode(bus, params, device=device),
+        "local_costmap", lambda p: p.local_costmap_period, argv=argv,
+    )
+
+
+def global_main(argv=None):
+    """Standalone global-costmap process (global_costmap_publisher.py:9-50)."""
+    from .live import single_node_main
+
+    return single_node_main(
+        lambda bus, params, device: GlobalCostmapNode(bus, params, device=device),
+        "global_costmap", lambda p: p.local_costmap_period, argv=argv,
+    )
+
+
+def global_nav_main(argv=None):
+    """Standalone file-reload global-costmap process — the nav variant that
+    re-reads the map PGM every iteration (global_costmap_publisher_nav.py:11-59).
+    The map files: ``TPU_MPC_MAP_PGM``/``TPU_MPC_MAP_YAML`` (the JAX
+    package's variables), else the repository's ``maps/map_synthetic``."""
+    import os
+
+    from .live import single_node_main
+
+    maps_dir = os.path.join(os.path.dirname(__file__), "..", "..", "maps")
+    pgm_path = os.environ.get("TPU_MPC_MAP_PGM", os.path.join(maps_dir, "map_synthetic.pgm"))
+    yaml_path = os.environ.get("TPU_MPC_MAP_YAML", os.path.join(maps_dir, "map_synthetic.yaml"))
+    return single_node_main(
+        lambda bus, params, device: GlobalCostmapNode(
+            bus, params,
+            map_pgm_path=pgm_path, map_yaml_path=yaml_path,
+            reload_map_every_tick=True, device=device,
+        ),
+        "global_costmap_nav",
+        lambda p: p.local_costmap_period,
+        argv=argv,
+    )

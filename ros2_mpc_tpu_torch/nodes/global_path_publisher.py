@@ -126,3 +126,17 @@ class GlobalPathPublisherNode:
             return {"status": "goal_reached"}
         return {"status": "published", "path_xy": path_xy}
 
+
+def main(argv=None):
+    """Standalone global-planner process: replan + publish /smoothed_plan at
+    the reference's ~1 Hz refresh (global_path_publisher.py:70-135)."""
+    from .live import single_node_main
+
+    return single_node_main(
+        lambda bus, params, device: GlobalPathPublisherNode(bus, params, device=device),
+        "global_planner", lambda p: p.path_refresh_period, argv=argv,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -36,6 +36,26 @@ from .state_publishers import TransformPublisherNode
 log = logging.getLogger("launch")
 
 
+class _MapperMapSource:
+    """map_server-shaped adapter over the occupancy mapper: every graph tick
+    folds the newest scan in; /map republishes at 1 Hz of sim time (the same
+    cadence a real mapping stack publishes at)."""
+
+    def __init__(self, mapper, publish_every: int = 5):
+        self.mapper = mapper
+        self.publish_every = publish_every
+        self._i = 0
+
+    def tick(self):
+        self.mapper.tick()
+        self._i += 1
+        if self._i % self.publish_every == 0:
+            self.mapper.publish()
+
+    def publish(self):
+        self.mapper.publish()
+
+
 @dataclasses.dataclass
 class SimStack:
     bus: MessageBus
@@ -48,6 +68,7 @@ class SimStack:
     transform_publisher: TransformPublisherNode
     params: Params
     safety: Optional[object] = None
+    mapper: Optional[object] = None
     # host clock of each stack tick (tick_s) and of its stages: map server
     # and local costmap (costmap_s), global planner (plan_s), follower
     # (control_s), plant and sensors (plant_s); each stage ends on a read
@@ -109,6 +130,7 @@ def build_sim_stack(
     follower_kwargs: Optional[dict] = None,
     safety_stop: Optional[float] = None,
     map_source: str = "server",
+    mapper_kwargs: Optional[dict] = None,
     device=None,
 ) -> SimStack:
     """Assemble the nav-config node graph (launch_all_nav.launch.py) against
@@ -124,13 +146,13 @@ def build_sim_stack(
     forwards to cmd_vel, zeroing linear motion whenever the commanded
     direction has a scan return closer than this distance [m].
 
-    ``map_source="mapper"`` (the JAX package's navigate-while-mapping) needs
-    the occupancy mapper, which is not ported yet: it raises
-    NotImplementedError."""
-    if map_source == "mapper":
-        raise NotImplementedError("map_source='mapper' needs ops/mapping.py, not ported yet")
-    if map_source != "server":
-        raise ValueError(f"unknown map_source {map_source!r}")
+    ``map_source="mapper"`` replaces the file map server with the occupancy
+    mapper (nodes/mapper.py, its log-odds grid on ``device``): /map starts
+    fully unknown (which the planner treats optimistically as free) and is
+    built live from scans — navigate-while-mapping. The simulated world is
+    still ``map_image``. ``mapper_kwargs`` go to :class:`MapperNode`
+    (default ``size_m=12.0, resolution=0.05``: a 240x240 grid centered on
+    the world origin; pass ``origin_xy`` for a world that is not)."""
     device = resolve_device(device)
     bus = MessageBus()
     if map_image is None:
@@ -140,11 +162,22 @@ def build_sim_stack(
         bus, map_image, map_info, start_pose=start_pose, params=params,
         noise=noise, noise_seed=noise_seed, device=device,
     )
-    map_server = MapServerNode(
-        bus,
-        map_image=planner_map_image if planner_map_image is not None else map_image,
-        map_info=map_info,
-    )
+    mapper = None
+    if map_source == "mapper":
+        from .mapper import MapperNode
+
+        mkw = dict(size_m=12.0, resolution=0.05)
+        mkw.update(mapper_kwargs or {})
+        mapper = MapperNode(bus, params, topic="/map", device=device, **mkw)
+        map_server = _MapperMapSource(mapper)
+    elif map_source == "server":
+        map_server = MapServerNode(
+            bus,
+            map_image=planner_map_image if planner_map_image is not None else map_image,
+            map_info=map_info,
+        )
+    else:
+        raise ValueError(f"unknown map_source {map_source!r}")
     transform_publisher = TransformPublisherNode(bus)
     global_planner = GlobalPathPublisherNode(
         bus, params, use_scan_obstacles=not reference_parity, device=device
@@ -183,6 +216,7 @@ def build_sim_stack(
         transform_publisher=transform_publisher,
         params=params,
         safety=safety,
+        mapper=mapper,
     )
 
 
@@ -202,8 +236,16 @@ def run_sim_stack(follower: str = "tracking", n_ticks: int = 200, goal=(1.0, -1.
     return reached
 
 
-def main():
-    run_sim_stack()
+def main(argv=None):
+    """Console entry (``cuda-mpc-launch``): ``run_sim_stack`` on ``--device``
+    (default: the card, refused without one)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--follower", default="tracking", choices=["point", "tracking"])
+    ap.add_argument("--device", default=None, help="torch device (default: the card; 'cpu' for the host)")
+    args = ap.parse_args(argv)
+    run_sim_stack(args.follower, device=args.device)
 
 
 if __name__ == "__main__":

@@ -50,3 +50,25 @@ class MapServerNode:
     def publish(self):
         self.publisher.publish_map(self.map_image, self.map_info)
 
+
+def main(argv=None):
+    """Standalone map-server process: load the packaged map asset (the
+    reference loads maps/map_carto.pgm) and (re)publish /map on
+    subscriber-count changes at 1 Hz (core/map_server.py:25-31). The map
+    files: ``TPU_MPC_MAP_PGM``/``TPU_MPC_MAP_YAML`` (the JAX package's
+    variables), else the repository's ``maps/map_synthetic``."""
+    import os
+
+    from .live import single_node_main
+
+    maps_dir = os.path.join(os.path.dirname(__file__), "..", "..", "maps")
+    pgm_path = os.environ.get("TPU_MPC_MAP_PGM", os.path.join(maps_dir, "map_synthetic.pgm"))
+    yaml_path = os.environ.get("TPU_MPC_MAP_YAML", os.path.join(maps_dir, "map_synthetic.yaml"))
+    return single_node_main(
+        lambda bus, params, device: MapServerNode(bus, map_pgm_path=pgm_path, map_yaml_path=yaml_path),
+        "map_server_node",
+        lambda p: 1.0,
+        # the scaffolding's synthetic-map server would race this node on /map
+        exclude_source_tasks=frozenset({"map_server"}),
+        argv=argv,
+    )

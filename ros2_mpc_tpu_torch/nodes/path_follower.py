@@ -246,3 +246,17 @@ class PathFollowerNode:
             "escaped": escaping,
         }
 
+
+def main(argv=None):
+    """Console entry: the flagship tracking control loop on the wall-clock
+    live graph (path_follower_local_planner.py:134-223 semantics at 5 Hz);
+    the live graph's flags, ``--device`` included (default: the card)."""
+    import sys
+
+    from .live import main as live_main
+
+    live_main(["--follower", "tracking", *(sys.argv[1:] if argv is None else argv)])
+
+
+if __name__ == "__main__":
+    main()

@@ -191,3 +191,17 @@ class PointFollowerNode:
             "escaped": escaping,
         }
 
+
+def main(argv=None):
+    """Console entry: the carrot-chasing control loop on the wall-clock live
+    graph (point_follower_local_planner.py:121-231 semantics at 5 Hz); the
+    live graph's flags, ``--device`` included (default: the card)."""
+    import sys
+
+    from .live import main as live_main
+
+    live_main(["--follower", "point", *(sys.argv[1:] if argv is None else argv)])
+
+
+if __name__ == "__main__":
+    main()

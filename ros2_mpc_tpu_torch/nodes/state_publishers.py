@@ -52,3 +52,31 @@ class TransformPublisherNode:
         runs it as rclpy.spin, transform_publisher.py:32-39)."""
         return {"status": "spinning", "broadcasts": self.broadcasts}
 
+
+def robot_state_main(argv=None):
+    """Console entry: the standalone 20 Hz robot state publisher process
+    (reference console script 'robot_state_publisher', setup.py:33). The
+    node is host code; the simulator it runs against lives on ``--device``."""
+    from .live import single_node_main
+
+    return single_node_main(
+        lambda bus, params, device: RobotStatePublisherNode(bus),
+        "robot_state_pub",
+        lambda p: p.state_publish_period,
+        # the scaffolding's own state publisher would double /robot_position
+        exclude_source_tasks=frozenset({"robot_state"}),
+        argv=argv,
+    )
+
+
+def transform_publisher_main(argv=None):
+    """Console entry: the standalone map->odom tf publisher process
+    (reference console script 'map_odom_tf_publisher', setup.py:38)."""
+    from .live import single_node_main
+
+    return single_node_main(
+        lambda bus, params, device: TransformPublisherNode(bus),
+        "map_odom_tf",
+        lambda p: p.state_publish_period,
+        argv=argv,
+    )

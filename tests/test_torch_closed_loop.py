@@ -185,14 +185,17 @@ def test_global_costmap_file_reload_variant():
 
 
 def test_unported_options_raise():
-    """The mapper map source waits for its module (ROADMAP item 15) and
-    raises. The multistart escape is ported (the name is kept from when it
-    raised too): with ``escape_after`` each follower builds, and a forced
-    stall makes exactly one escape tick, on the multistart engine (K1 for
+    """Both options are ported now (the name is kept from when they raised):
+    the mapper map source builds, its /map fully unknown at the start, and
+    an unknown map source raises ValueError. With ``escape_after`` each
+    follower builds, and a forced stall makes exactly one escape tick, on the multistart engine (K1 for
     the point follower, K2 for the path follower, their plain versions
     here), whose generator advances; the command stays finite."""
-    with pytest.raises(NotImplementedError):
-        stack(map_source="mapper")
+    mapped = stack(map_source="mapper")
+    assert mapped.mapper is not None and mapped.mapper.L.device.type == "cpu"
+    assert float((mapped.mapper.occupancy() == -1).mean()) > 0.95
+    with pytest.raises(ValueError):
+        stack(map_source="cartographer")
     for follower, kind in (("point", "point_stab"), ("tracking", "tracking")):
         s = stack(follower, follower_kwargs=dict(escape_after=3))
         node = s.follower
