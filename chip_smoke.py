@@ -88,6 +88,27 @@ the runs above); then
 reached, no role failed). The K1 launches of the in-process runs join the
 ``kernels`` line.
 
+Then the scale phase (``parallel/mesh.py``, the sharded fleets,
+``parallel/sweep.py``, ``parallel/distributed.py``,
+``parallel/scaling_bench.py``) on ``make_mesh(4, device="cuda:0")``, four
+shards of the one card: the headline and tracking banks through
+``make_bank_solver(engine="cuda")``, four shards of 1024 bit-equal to one
+shard (U, X, cost, KKT residual, n_iters), with ``bank_metrics`` beside the
+gathered bank's numbers; each engine of the menu through
+``scaling_bench.run``, its throughput on one shard and on four (the ceiling
+on one card is 1/4) and shard 0 equal to one shard, the K1-bearing engines
+at 512 a shard, ``vmap`` and ``fast`` (plain PyTorch) at 16 and N=10 with
+the short schedule, each no worse than K1 where the JAX suite says so; the sharded
+point fleet, tracking fleet and swarm at the fleets phase's widths,
+bit-equal to their unsharded runs and free of host syncs; BASELINE.json
+config 5's sweep (25 configs x 4096 scenarios, 102,400 K1 solves, chunks of
+16,384), resumed after two chunks are deleted from its checkpoint (the same
+table, and exactly those chunks' K1 launches again); K2 at B=1, N=256. Five
+K1 calls of the sharded swarm, five K2 calls of the sharded tracking fleet
+and the N=256 call join the plain checks. Beside the plain workers, two gloo
+ranks on the card (``scaling_bench.run_distributed``) each solve half of a
+globally sharded 4096 bank through K1, bit-equal to one process's solve.
+
 K1 and K2 run one scenario on a group of lanes; each geometry line is the
 kernel's own, and the wrapper's pre-build mirror of it must agree. Each
 kernel is held against its plain PyTorch version on the same inputs on the
@@ -223,6 +244,25 @@ MAPPER_SCANS, MIN_TRINARY_AGREEMENT = 30, 0.999
 WAVE_GOALS = 64  # batched_distance_fields' goals on the synthetic map
 LIVE_DURATION, MULTIPROC_DURATION = 30.0, 60.0  # run_live and run_multiprocess budgets [s]
 COMPAT_N = 10  # tests/test_compat.py's horizon
+# The scale phase (parallel/mesh.py, sharded fleets, sweep.py,
+# distributed.py, scaling_bench.py) on SCALE_SHARDS shards of the one card
+# (make_mesh(4, device="cuda:0")): the headline and tracking banks (B=4096,
+# N=20) against one shard; scaling_bench.run for the K1-bearing engines at
+# SCALE_PER_SHARD a shard and the bench's options, for "vmap" and "fast"
+# (plain PyTorch, bound by the host's dispatch, whose cost grows with the
+# horizon and not the rows) at SCALE_SMALL_PER_SHARD and SCALE_SMALL_N with
+# its short schedule, one timed call after a warm-up each; the three sharded fleets at the fleets phase's widths against
+# their unsharded runs; BASELINE.json config 5's sweep, 25 configs x
+# SWEEP_PER_CONFIG scenarios in chunks of SWEEP_CHUNK, resumed after
+# SWEEP_DROPPED chunks are deleted from its checkpoint; K2 at B=1,
+# N=LONG_N (tests/test_scaling.py's schedule); two gloo ranks on the card.
+# SCALE_KEEP K1 calls of the sharded swarm and SCALE_KEEP K2 calls of the
+# sharded tracking fleet, spread over their ticks and shards, and the N=256
+# call join the plain checks.
+SCALE_SHARDS, SCALE_PER_SHARD, SCALE_REPS = 4, 512, 1
+SCALE_SMALL_PER_SHARD, SCALE_SMALL_N = 16, 10
+SWEEP_PER_CONFIG, SWEEP_CHUNK, SWEEP_DROPPED = 4096, 16384, (2, 5)
+LONG_N, SCALE_KEEP = 256, 5
 
 
 def headline_bank(rng, B):
@@ -786,14 +826,17 @@ def quadrotor_bank(prob_q, Bq, dev):
     return torch.func.vmap(prob_q.make_theta)(tens(xq), tens(gq))
 
 
-def run_rollout(name, roll, args, ticks):
+def run_rollout(name, roll, args, ticks, per_tick=1):
     """One rollout through ``roll`` after a warm-up call: its kernels'
     launch counters zeroed just before and read just after, every kernel
     call recorded, all of it under ``torch.cuda.set_sync_debug_mode("error")``
     up to the result (a read back, ``nonzero`` or pageable copy inside a
     tick raises there), timed with CUDA events. Raises unless the kernels
-    launched once a tick. Returns (result, ms, launches, recorded calls)."""
+    launched ``per_tick`` times a tick (once a shard). Returns (result, ms,
+    launches, recorded calls)."""
     import torch
+
+    from ros2_mpc_tpu_torch.parallel.mesh import Sharded
 
     roll(*args)  # warm-up: the kernels' schedules reach the card here
     torch.cuda.synchronize()
@@ -813,9 +856,10 @@ def run_rollout(name, roll, args, ticks):
     calls = [(k, *c) for k in kernels for c in k.record]
     for k in kernels:
         k.record = None
-    if launches != ticks or len(calls) != ticks:
-        raise AssertionError(f"{name}: {launches} kernel launches in {ticks} ticks")
-    if not bool(torch.isfinite(out.final_states).all()):
+    if launches != ticks * per_tick or len(calls) != launches:
+        raise AssertionError(f"{name}: {launches} kernel launches in {ticks} ticks of {per_tick} shard(s)")
+    final = out.final_states.gather() if isinstance(out.final_states, Sharded) else out.final_states
+    if not bool(torch.isfinite(final).all()):
         raise AssertionError(f"{name}: non-finite final states")
     return out, start.elapsed_time(end), launches, calls
 
@@ -1322,6 +1366,239 @@ def autonomy_phase(dev, card):
     return launches, err
 
 
+def scale_phase(dev, card, inp):
+    """The mesh, the sharded fleets, the checkpointed sweep and the scaling
+    harness through the port's entry points, on SCALE_SHARDS shards of the
+    card: the headline and tracking banks bit-equal to one shard, each
+    engine's throughput on one shard and on the mesh, the sharded fleets
+    bit-equal to the unsharded ones with no host sync inside, the sweep
+    resumed exactly, and K2 at B=1, N=LONG_N. Returns ({"K1": launches,
+    "K2": launches}, [(name, kernel name, kernel calls), ...] for the plain
+    checks, and a function that runs the two gloo ranks on the card)."""
+    import torch
+
+    from ros2_mpc_tpu_torch.parallel import (
+        SweepSpec,
+        arc_path_fleet,
+        grid_swap_swarm,
+        make_bank_solver,
+        make_fleet_rollout,
+        make_mesh,
+        make_sharded_fleet_rollout,
+        make_sharded_swarm_rollout,
+        make_sharded_tracking_fleet_rollout,
+        make_swarm_rollout,
+        make_tracking_fleet_rollout,
+        random_fleet,
+        run_sweep,
+        scaling_bench,
+    )
+    from ros2_mpc_tpu_torch.solver import SolverSettings, make_point_stabilization, make_tracking
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import make_cuda_point_stab_solver, make_cuda_tracking_solver
+
+    params, dt, rt = inp.params, inp.params.dt, SolverSettings.realtime()
+    launches, checks = {"K1": 0, "K2": 0}, []
+    mesh, one = make_mesh(SCALE_SHARDS, device=dev), make_mesh(1, device=dev)
+    fields = ("U", "X", "cost", "kkt_residual", "n_iters")
+    U0 = torch.zeros(B, N, 2, dtype=torch.float32, device=dev)
+
+    # ---- the headline and tracking banks: four shards of 1024 against one
+    for name, prob, th, kname in (("headline", inp.prob, inp.th_main, "K1"), ("tracking", inp.prob_t, inp.th_trk, "K2")):
+        step, step1 = make_bank_solver(prob, mesh), make_bank_solver(prob, one)
+        (k,), (k1,) = step.engines, step1.engines
+        k.launches = k1.launches = 0
+        sols, met = step(th, U0)
+        ref, _ = step1(th, U0)
+        torch.cuda.synchronize()
+        n, n1 = k.launches, k1.launches
+        got, ref = sols.gather(dev), ref.gather(dev)
+        unequal = [f for f in fields if not torch.equal(getattr(got, f), getattr(ref, f))]
+        ms, ms1 = cuda_ms(step, th, U0), cuda_ms(step1, th, U0)
+        print(
+            f"scale {name} bank (B={B}, N={N}, {SCALE_SHARDS} shards of {B // SCALE_SHARDS} on one card): bit-equal "
+            f"to one shard on {', '.join(fields)} {'yes' if not unequal else 'no: ' + ', '.join(unequal)}; "
+            f"{kname} launches {n} (one shard {n1}); bank_metrics mean cost {float(met['mean_cost']):.6f}, max KKT "
+            f"{float(met['max_kkt']):.3e}, converged {float(met['frac_converged']):.4f}; on the gathered bank "
+            f"{float(got.cost.mean()):.6f}, {float(got.kkt_residual.max()):.3e}, "
+            f"{float(got.converged.float().mean()):.4f}; step {ms:.3f} ms on {SCALE_SHARDS} shards, {ms1:.3f} ms on "
+            f"one (CUDA events, median of 5) -- {card}",
+            flush=True,
+        )
+        if unequal or n != SCALE_SHARDS or n1 != 1:
+            raise AssertionError(f"scale {name} bank: {unequal or 'launches'} against one shard")
+        if float(met["max_kkt"]) != float(got.kkt_residual.max()) or float(met["frac_converged"]) != float(got.converged.float().mean()):
+            raise AssertionError(f"scale {name} bank: bank_metrics differ from the gathered bank's")
+        launches[kname] += n + n1
+
+    # ---- the engine menu through the scaling harness, one shard against four
+    opts = scaling_bench.engine_options(SCALE_PER_SHARD)
+    short = opts["two_pass"]["solver_settings"]
+    runs = {}
+    for label, engine, per, n_hor, kw in (
+        ("cuda", "cuda", SCALE_PER_SHARD, N, {}),
+        ("cuda (short schedule)", "cuda", SCALE_PER_SHARD, N, {"solver_settings": short}),
+        *((e, e, SCALE_PER_SHARD, N, opts[e]) for e in ("mppi", "hybrid", "multistart", "two_pass", "multistart_bank", "multistart_rescue")),
+        *((e, e, SCALE_SMALL_PER_SHARD, SCALE_SMALL_N, opts[e]) for e in ("vmap", "fast")),
+    ):
+        t0 = time.perf_counter()
+        r = runs[label] = scaling_bench.run(per, n_hor, SCALE_REPS, engine=engine, device=dev, n_devices=SCALE_SHARDS, **kw)
+        m1, mn = r["metrics_1dev"], r["metrics_ndev"]
+        print(
+            f"scale engine {label} ({per} a shard, N={n_hor}): one shard {r['solves_per_s_1dev']:,.0f} solves/s, "
+            f"{SCALE_SHARDS} shards {r['solves_per_s_ndev']:,.0f} solves/s, efficiency {r['scaling_efficiency']:.4f} "
+            f"(ceiling {r['contention_ceiling']:.2f}: one card); metrics one shard {m1}, {SCALE_SHARDS} shards {mn}; "
+            f"shard 0 equal to one shard {r['first_shard_equal']}; K1 launches {r['kernel_launches']} "
+            f"({time.perf_counter() - t0:.1f} s, host clock, best of {SCALE_REPS} after a warm-up) -- {card}",
+            flush=True,
+        )
+        if not r["first_shard_equal"] or not np.isfinite(mn["mean_cost"]) or r["solves_per_s_ndev"] <= 0:
+            raise AssertionError(f"scale engine {label}: shard 0 differs from one shard, or no result")
+        launches["K1"] += r["kernel_launches"]
+    # where the JAX suite says an engine never loses to the plain one
+    # (test_parallel.py: hybrid and multistart against vmap, two-pass's KKT
+    # and bank multistart's cost against pallas), on the same 2048 rows
+    base, base_s = runs["cuda"]["metrics_ndev"], runs["cuda (short schedule)"]["metrics_ndev"]
+    worse = [e for e in ("hybrid", "multistart") if runs[e]["metrics_ndev"]["frac_converged"] < base["frac_converged"] - 1e-6]
+    worse += [e for e in ("two_pass", "multistart_rescue") if runs[e]["metrics_ndev"]["frac_converged"] < base_s["frac_converged"] - 1e-6]
+    worse += ["two_pass"] * (runs["two_pass"]["metrics_ndev"]["max_kkt"] > base_s["max_kkt"] + 1e-6)
+    worse += ["multistart_bank"] * (runs["multistart_bank"]["metrics_ndev"]["mean_cost"] > base_s["mean_cost"] + 1e-4)
+    print(f"scale engines no worse than K1 where the JAX suite says so: {'yes' if not worse else worse}", flush=True)
+    if worse:
+        raise AssertionError(f"scale engines worse than K1: {worse}")
+
+    # ---- the sharded fleets against the unsharded ones, bit for bit
+    prob_p = make_point_stabilization(params, horizon=N, settings=rt, device=dev)
+    prob_c = make_point_stabilization(params, horizon=N, reference_parity=False, settings=rt, device=dev)
+    prob_tf = make_tracking(params, horizon=N, reference_parity=False, settings=rt, terminal_weight=(10.0, 10.0, 1.0), device=dev)
+    fleets = (
+        ("point fleet", "K1", TRACK_FLEET_TICKS, random_fleet(prob_p, FLEET_B, seed=0, device=dev),
+         make_fleet_rollout(prob_p, TRACK_FLEET_TICKS, dt, device=dev),
+         make_sharded_fleet_rollout(prob_p, mesh, TRACK_FLEET_TICKS, dt)),
+        ("tracking fleet", "K2", TRACK_FLEET_TICKS, arc_path_fleet(prob_tf, FLEET_B, n_waypoints=64, seed=0, device=dev),
+         make_tracking_fleet_rollout(prob_tf, TRACK_FLEET_TICKS, dt, goal_threshold=0.25, device=dev),
+         make_sharded_tracking_fleet_rollout(prob_tf, mesh, TRACK_FLEET_TICKS, dt, goal_threshold=0.25)),
+        (f"swarm (grid swap {SWARM_SIDE}x{SWARM_SIDE}, k=4)", "K1", SWARM_TICKS, grid_swap_swarm(prob_c, side=SWARM_SIDE, pitch=2.0, device=dev),
+         make_swarm_rollout(prob_c, SWARM_TICKS, dt, k_neighbors=4, device=dev),
+         make_sharded_swarm_rollout(prob_c, mesh, SWARM_TICKS, dt, k_neighbors=4)),
+    )  # fmt: skip
+    for name, kname, ticks, args, plain, sharded in fleets:
+        ref, ms1, n1, _ = run_rollout(f"scale {name}", plain, args, ticks)
+        out, ms, n, calls = run_rollout(f"scale sharded {name}", sharded, args, ticks, per_tick=SCALE_SHARDS)
+        final = out.final_states.gather(dev)
+        equal = torch.equal(final, ref.final_states)
+        extra = f", min separation {float(out.min_separation):.4f} m (unsharded {float(ref.min_separation):.4f})" if "swarm" in name else ""
+        print(
+            f"scale sharded {name} (B={FLEET_B}, N={N}, realtime, {ticks} ticks, {SCALE_SHARDS} shards): final states "
+            f"bit-equal to the unsharded rollout {'yes' if equal else 'no'}; reach {float(out.reach_fraction):.4f} "
+            f"(unsharded {float(ref.reach_fraction):.4f}){extra}; {ms / ticks:.3f} ms a tick ({ms1 / ticks:.3f} "
+            f"unsharded, CUDA events); launches {n} for {ticks} ticks ({n1} unsharded); no host sync inside -- {card}",
+            flush=True,
+        )
+        if not equal:
+            raise AssertionError(f"scale sharded {name}: final states differ from the unsharded rollout")
+        launches[kname] += n + n1
+        if name != "point fleet":
+            kept = [calls[i] for i in np.linspace(0, len(calls) - 1, SCALE_KEEP).astype(int)]
+            checks.append((f"scale sharded {name} ({SCALE_KEEP} shard calls over its ticks)", kname, kept))
+
+    # ---- the sweep: BASELINE config 5's 102,400 solves, resumed after two
+    # chunks are deleted from its checkpoint
+    prob_sw = make_point_stabilization(params, horizon=N, device=dev)
+    k1_sw = make_cuda_point_stab_solver(prob_sw.ocp, prob_sw.settings)
+    spec = SweepSpec(scenarios_per_config=SWEEP_PER_CONFIG)
+    ck = Path(__file__).resolve().parent / "build" / "scale_sweep.npz"
+    ck.parent.mkdir(parents=True, exist_ok=True)
+    ck.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    out1 = run_sweep(prob_sw, spec, mesh=mesh, checkpoint_path=str(ck), chunk_size=SWEEP_CHUNK, engine=lambda o, st: k1_sw)
+    torch.cuda.synchronize()
+    secs, n_first = time.perf_counter() - t0, k1_sw.launches
+    with np.load(ck) as f:
+        before = {k: f[k] for k in f.files}
+    np.savez(ck, **{k: v for k, v in before.items() if int(k) not in SWEEP_DROPPED})
+    k1_sw.launches = 0
+    out2 = run_sweep(prob_sw, spec, mesh=mesh, checkpoint_path=str(ck), chunk_size=SWEEP_CHUNK, engine=lambda o, st: k1_sw)
+    with np.load(ck) as f:
+        after = {k: f[k] for k in f.files}
+    n_total, n_chunks = 25 * SWEEP_PER_CONFIG, -(-25 * SWEEP_PER_CONFIG // SWEEP_CHUNK)
+    same = sorted(after) == sorted(before) and all(np.array_equal(after[k], before[k]) for k in before)
+    same = same and np.array_equal(out1["mean_goal_error"], out2["mean_goal_error"])
+    print(
+        f"scale sweep (BASELINE config 5: 25 configs x {SWEEP_PER_CONFIG} = {n_total:,} K1 solves, N={N}, chunks of "
+        f"{SWEEP_CHUNK}, {SCALE_SHARDS} shards): {secs:.2f} s ({n_total / secs:,.0f} solves/s, host clock with the "
+        f"checkpoint writes), K1 launches {n_first} for {n_chunks} chunks; best (Q, R) scales "
+        f"{tuple(float(x) for x in out1['best_config'])}, mean goal error {float(out1['mean_goal_error'].min()):.4f} m; "
+        f"after deleting chunks {SWEEP_DROPPED} the resume solved {out2['chunks_solved']} with {k1_sw.launches} K1 "
+        f"launches, checkpoint and table equal {'yes' if same else 'no'} -- {card}",
+        flush=True,
+    )
+    if n_first != n_chunks * SCALE_SHARDS or k1_sw.launches != len(SWEEP_DROPPED) * SCALE_SHARDS:
+        raise AssertionError("scale sweep: the launches are not a shard's per chunk solved")
+    if not same or out2["chunks_solved"] != list(SWEEP_DROPPED):
+        raise AssertionError("scale sweep: the resumed sweep differs")
+    launches["K1"] += n_first + k1_sw.launches
+    ck.unlink()
+
+    # ---- K2 at B=1, N=LONG_N (tests/test_scaling.py::test_long_horizon_tracking_N256)
+    prob_l = make_tracking(params, horizon=LONG_N, settings=SolverSettings(barrier_stages=4, iters_per_stage=3, n_alphas=6), device=dev)
+    k2_l = make_cuda_tracking_solver(prob_l.ocp, prob_l.settings)
+    check_geometry("K2 long horizon", k2_l, 1)
+    check_geometry("K2 long horizon", k2_l, 16)
+    ts_ = np.arange(1, LONG_N + 1) * dt
+    x_ref = np.stack([0.15 * ts_, np.zeros(LONG_N), np.zeros(LONG_N)], axis=1)
+    tens = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    th_l = {k: v[None] for k, v in prob_l.make_theta(tens(np.zeros(3)), tens(x_ref), tens(np.tile([0.15, 0.0], (LONG_N, 1)))).items()}
+    U_l = prob_l.default_u0[None]
+    k2_l.launches, k2_l.record = 0, []
+    sol_l = k2_l(th_l, U_l)
+    torch.cuda.synchronize()
+    calls, n = [(k2_l, *c) for c in k2_l.record], k2_l.launches
+    k2_l.record = None
+    ms_l = cuda_ms(k2_l, th_l, U_l)
+    U = sol_l.U[0].cpu().numpy()
+    end_x = float(sol_l.X[0, -1, 0])
+    print(
+        f"scale K2 long horizon (B=1, N={LONG_N}, 4x3 iterations, 6 alphas): converged {bool(sol_l.converged[0])}, "
+        f"cruise v min {U[5:-5, 0].min():.4f} m/s, terminal x {end_x:.3f} m (reference {0.15 * LONG_N * dt:.2f}); "
+        f"{ms_l:.3f} ms (CUDA events, median of 5); launches {n} -- {card}",
+        flush=True,
+    )
+    if n != 1 or not np.isfinite(U).all() or not (U[5:-5, 0] > 0.12).all() or abs(end_x - 0.15 * LONG_N * dt) >= 1.5:
+        raise AssertionError("scale K2 long horizon: no solve, or it does not track")
+    launches["K2"] += n
+    checks.append((f"scale K2 long horizon (B=1, N={LONG_N})", "K2", calls))
+    print(f"launch counters of the scale phase: {launches}", flush=True)
+
+    def distributed_run():
+        """scaling_bench.run_distributed on the card: two gloo ranks on
+        cuda:0, each solving its half of a 4096 bank through K1, against one
+        process's solve of the whole bank. The ranks stage the collectives
+        through the host (gloo has no CUDA collectives; NCCL refuses two
+        ranks on one card), so this path is outside the sync check. Returns
+        the ranks' K1 launches."""
+        t0 = time.perf_counter()
+        out = scaling_bench.run_distributed(
+            timeout=300.0, device=str(dev), per_device_batch=B // 2, horizon=N, reps=1, engines=("cuda",)
+        )
+        res = {r["engine"]: r for r in out["results"]}
+        print(
+            f"scale two gloo ranks on the card ({out['global_devices']} shards of {out['per_device_batch']}, N={N}, K1): gathered bank "
+            f"bit-equal to one process's solve {'yes' if out['bit_equal_vs_local'] else 'no'} (max |dU| "
+            f"{out['max_err_vs_local']:.3e}); all-reduced metrics mean cost {out['mean_cost']:.6f}, converged "
+            f"{out['frac_converged']:.4f} (one process {out['metrics_local']['mean_cost']:.6f}, "
+            f"{out['metrics_local']['frac_converged']:.4f}); swarm across the ranks |dx| {out['swarm_err_vs_local']:.3e}, "
+            f"min separation {out['swarm_min_separation']:.4f} m; K1 one shard {res['cuda']['solves_per_s_1dev']:,.0f} "
+            f"solves/s, two ranks {res['cuda']['solves_per_s_ndev']:,.0f}; K1 launches in the ranks {out['launches']} "
+            f"({time.perf_counter() - t0:.1f} s with the spawn) -- {card}",
+            flush=True,
+        )
+        if not out["bit_equal_vs_local"] or out["swarm_err_vs_local"] != 0.0:
+            raise AssertionError("scale two ranks: the globally sharded solve differs from one process's")
+        return out["launches"]
+
+    return launches, checks, distributed_run
+
+
 def main_path_inputs(dev):
     """The main path's problems and inputs, all from seeded generators as
     bench.py builds them: the headline, obstacle-active and tracking banks
@@ -1516,6 +1793,11 @@ def main() -> int:
     # multi-process graphs and the compat adapters
     auto_launches, auto_err = autonomy_phase(dev, card)
     lap("autonomy")
+    # ---- the mesh, the sharded fleets, the sweep and the scaling harness on
+    # four shards of the card; their kept shard calls join the plain checks
+    scale_launches, scale_checks, distributed_run = scale_phase(dev, card, inp)
+    comp_checks += scale_checks
+    lap("scale")
     bank_jobs = {
         "K1 headline": plain_job(k1, th_main, U0, with_counters=True),
         "K1 obstacle-active": plain_job(k1, th_obs, U0, with_counters=True),
@@ -1551,6 +1833,9 @@ def main() -> int:
         if max(apart.values()) > FLEET_CPU_ATOL:
             raise AssertionError(f"fleets: the card and the CPU apart by {apart}")
         lap("fleets against the CPU")
+        # ---- two gloo ranks on the card, one globally sharded bank
+        dist_launches = distributed_run()
+        lap("scale: two gloo ranks")
         results = [pending[i].get(timeout=max(1.0, deadline - time.perf_counter())) for i in range(len(jobs))]
     plain = {}  # the main path's banks (with their counters, which the
     # counted reruns of the roofline path must match)
@@ -1748,7 +2033,7 @@ def main() -> int:
             "source": "ros2_mpc_tpu_torch/csrc/point_stab.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:119",
             "launches": launches["K1"] + loop_launches["K1"] + comp_launches["K1"] + fleet_launches["K1"]
-            + auto_launches["K1"],
+            + auto_launches["K1"] + scale_launches["K1"] + dist_launches,
             "max_abs_err": max(err1, tick_errs["K1 tick"], loop_err, comp_err["K1"], auto_err),
             "ms": times["K1"][0],
             "plain_ms": times["K1"][1],
@@ -1762,7 +2047,7 @@ def main() -> int:
             "source": "ros2_mpc_tpu_torch/csrc/tracking.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:769",
             "launches": launches["K2"] + loop_launches["K2"] + comp_launches["K2"] + fleet_launches["K2"]
-            + auto_launches["K2"],
+            + auto_launches["K2"] + scale_launches["K2"],
             "max_abs_err": max(err2, tick_errs["K2 tick"], loop_err, comp_err["K2"]),
             "ms": times["K2"][0],
             "plain_ms": times["K2"][1],

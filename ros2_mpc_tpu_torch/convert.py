@@ -36,13 +36,16 @@ def mppi_noise_from_numpy(draws, device=None):
     that returns given white draws instead of sampling: ``draws`` is
     (n_iters, B, N, S, m), iteration t of scenario b being the JAX package's
     ``jax.random.normal(jax.random.split(key_b, n_iters)[t], (N, S, m))``.
-    The stand-in serves iteration t in the port's layout (N, B, S, m) and
-    ignores the generator."""
+    The stand-in serves iteration t in the port's layout (N, B, S, m): all B
+    rows for a ``torch.Generator`` (which it ignores), and for a
+    :class:`~ros2_mpc_tpu_torch.solver.mppi.ScenarioStreams` the rows of its
+    global scenarios (a shard of the bank)."""
     device = resolve_device(device)
     white = torch.as_tensor(np.array(draws, dtype=np.float32), device=device).permute(0, 2, 1, 3, 4)
 
     def white_noise(generator, t, shape, dev):
-        out = white[t]
+        first = getattr(generator, "offset", 0)
+        out = white[t][:, first : first + shape[1]]
         if tuple(out.shape) != tuple(shape):
             raise ValueError(f"injected draws of iteration {t} are {tuple(out.shape)}, MPPI asks for {tuple(shape)}")
         return out.to(dev)

@@ -20,6 +20,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def indexed_device(device) -> torch.device:
+    """``device`` with its index: a bare ``"cuda"`` is the current card, as
+    the tensors made there report it (``cuda:0``), so that it can key a
+    table of per-device constants."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def device_constant(values):
     """``const(device, dtype=torch.float32)``: the vector ``values`` on
     ``device``, copied from the host once for each device and dtype and
@@ -28,7 +38,7 @@ def device_constant(values):
     cache = {}
 
     def const(device, dtype=torch.float32):
-        key = (torch.device(device), dtype)
+        key = (indexed_device(device), dtype)
         if key not in cache:
             cache[key] = torch.tensor(values, dtype=dtype, device=device)
         return cache[key]

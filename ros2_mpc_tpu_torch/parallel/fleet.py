@@ -1,18 +1,26 @@
-"""Fleet closed-loop evaluation: thousands of simulated robots on one card.
+"""Fleet closed-loop evaluation: thousands of simulated robots on one card,
+or sharded over a device mesh.
 
-Port of :mod:`ros2_mpc_tpu.parallel.fleet` (the unsharded rollouts). The
-whole closed loop of a Monte-Carlo fleet of (start, goal) scenarios: every
-control tick one bank solve of the fleet, the first control of each robot
-through a plant, and shift-and-hold warm starts, over ``n_ticks`` ticks.
+Port of :mod:`ros2_mpc_tpu.parallel.fleet`. The whole closed loop of a
+Monte-Carlo fleet of (start, goal) scenarios: every control tick one bank
+solve of the fleet, the first control of each robot through a plant, and
+shift-and-hold warm starts, over ``n_ticks`` ticks.
 
 The JAX package's jitted ``lax.scan`` over ticks becomes a Python loop over
-ticks on device tensors. Each tick is one bank-solve call (with
-``engine="cuda"`` one K1 or K2 launch) and a few tensor ops; nothing in the
-loop reads the device back (no ``.item()``, no data-dependent shape, no
-pageable copy), so the host queues tick after tick while the card works, and
-the fleet is one program in the sense that matters on this card.
-``chip_smoke.py`` runs every rollout under
-``torch.cuda.set_sync_debug_mode("error")`` to hold it to that.
+ticks on device tensors, written once per fleet as a generator that yields
+after each tick. Each tick is one bank-solve call (with ``engine="cuda"``
+one K1 or K2 launch) and a few tensor ops; nothing in the loop reads the
+device back (no ``.item()``, no data-dependent shape, no pageable copy), so
+the host queues tick after tick while the card works, and the fleet is one
+program in the sense that matters on this card. ``chip_smoke.py`` runs every
+rollout under ``torch.cuda.set_sync_debug_mode("error")`` to hold it to
+that.
+
+The sharded rollouts (``make_sharded_*``, over a
+:class:`~ros2_mpc_tpu_torch.parallel.mesh.Mesh`) run one such loop per shard
+on its slot's device and interleave them tick by tick (:func:`_lockstep`);
+the swarm gathers every shard's positions and velocities each tick
+(:func:`~ros2_mpc_tpu_torch.parallel.mesh.gather_rows`).
 
 Engines: ``"cuda"`` (K1 for point stabilization, K2 for tracking, through
 :mod:`~ros2_mpc_tpu_torch.solver.cuda_kernel`: the kernel on CUDA tensors,
@@ -39,11 +47,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import device_constant, indexed_device, resolve_device
 from ..models import unicycle
 from ..ops.integrators import rk4_step
 from ..solver.multistart_bank import bank_engine
 from ..solver.warmstart import shift_controls
+from .mesh import Sharded, gather_rows, reduce_parts, shard_bank
 
 _F32 = torch.float32
 
@@ -112,9 +121,32 @@ def _summary(xs, goals, pd, goal_threshold, traj):
     )
 
 
+def _lockstep(loops, exchange=None):
+    """Run closed loops tick by tick: ``loops`` are generators, one per
+    shard, each yielding once a tick; tick t of every loop runs, then tick
+    t+1, so that one host thread keeps every shard's device fed. Coupled
+    loops (the swarm) yield a message at the start of each tick and are sent
+    back their entry of ``exchange(messages)``. Returns the loops' return
+    values."""
+    out, replies = [None] * len(loops), [None] * len(loops)
+    live = list(range(len(loops)))
+    while live:
+        msgs = {}
+        for i in live:
+            try:
+                msgs[i] = loops[i].send(replies[i])
+            except StopIteration as stop:
+                out[i] = stop.value
+        live = [i for i in live if i in msgs]
+        if exchange is not None and live:
+            for i, reply in zip(live, exchange([msgs[i] for i in live])):
+                replies[i] = reply
+    return out
+
+
 def _goal_loop(solve_bank, plant, n_ticks, record, thetas, U0s):
-    """solve -> actuate -> shift for ``n_ticks``: (final states, trajectory
-    list or None)."""
+    """solve -> actuate -> shift for ``n_ticks``, a generator that yields
+    after each tick and returns (final states, trajectory list or None)."""
     xs, warm = thetas["x0"], U0s
     traj = [xs] if record else None
     for _ in range(n_ticks):
@@ -125,7 +157,22 @@ def _goal_loop(solve_bank, plant, n_ticks, record, thetas, U0s):
         warm = _shift(sols.U)
         if record:
             traj.append(xs)
+        yield
     return xs, traj
+
+
+def _sharded_summary(mesh, xs, goals, goal_threshold, trajs):
+    """The fleet statistics of per-shard final states (goal distance over
+    the planar position), reduced across shards as ``bank_metrics``."""
+    goal_dist = [torch.linalg.vector_norm(x[:, :2] - g[:, :2], dim=-1) for x, g in zip(xs, goals)]
+    n = xs[0].shape[0] * mesh.size
+    return FleetResult(
+        final_states=Sharded(tuple(xs), mesh),
+        goal_dist=Sharded(tuple(goal_dist), mesh),
+        reach_fraction=reduce_parts(mesh, [(d < goal_threshold).to(_F32).sum() for d in goal_dist], "sum") / n,
+        mean_dist=reduce_parts(mesh, [d.sum() for d in goal_dist], "sum") / n,
+        trajectories=Sharded(tuple(torch.stack(t) for t in trajs), mesh, dim=1) if trajs is not None else None,
+    )
 
 
 def make_fleet_rollout(
@@ -148,8 +195,40 @@ def make_fleet_rollout(
 
     def rollout(thetas, U0s):
         thetas, U0s = _on(thetas, dev), U0s.to(dev)
-        xs, traj = _goal_loop(solve_bank, plant, n_ticks, record, thetas, U0s)
+        ((xs, traj),) = _lockstep([_goal_loop(solve_bank, plant, n_ticks, record, thetas, U0s)])
         return _summary(xs, thetas["goal"], 2, goal_threshold, traj)
+
+    rollout.engines = (solve_bank,)
+    return rollout
+
+
+def make_sharded_fleet_rollout(
+    problem,
+    mesh,
+    n_ticks: int,
+    dt: float,
+    goal_threshold: float = 0.2,
+    record: bool = False,
+    engine="cuda",
+):
+    """:func:`make_fleet_rollout` over a device mesh
+    (:mod:`~ros2_mpc_tpu_torch.parallel.mesh`): each shard runs the whole
+    closed loop on its slot's device, the shards' ticks interleaved (robots
+    are independent, so nothing crosses shards inside the loop), and only
+    the fleet statistics reduce across the mesh.
+    ``rollout(thetas, U0s) -> FleetResult``: the inputs are
+    :func:`~.mesh.shard_bank` results over ``mesh`` (or whole banks);
+    ``final_states``, ``goal_dist`` and ``trajectories`` are
+    :class:`~.mesh.Sharded` (``gather`` them), the two statistics 0-d
+    tensors on the first slot's device."""
+    solve_bank = _bank_solver(problem, engine)
+    plant = _plant(dt)
+
+    def rollout(thetas, U0s):
+        th, U = shard_bank(thetas, mesh), shard_bank(U0s, mesh)
+        outs = _lockstep([_goal_loop(solve_bank, plant, n_ticks, record, t, u) for t, u in zip(th.shards, U.shards)])
+        trajs = [traj for _, traj in outs] if record else None
+        return _sharded_summary(mesh, [xs for xs, _ in outs], [t["goal"] for t in th.shards], goal_threshold, trajs)
 
     rollout.engines = (solve_bank,)
     return rollout
@@ -201,6 +280,8 @@ DEFAULT_HANDOFF_Q = (5.0, 5.0, 0.05)
 DEFAULT_HANDOFF_TERMINAL = (50.0, 50.0, 5.0)
 # the reference's hard-coded goal latch (path_follower_local_planner.py:205-219)
 LATCH_RADIUS = 0.15
+_HANDOFF_Q = device_constant(DEFAULT_HANDOFF_Q)
+_HANDOFF_TERMINAL = device_constant(DEFAULT_HANDOFF_TERMINAL)
 
 
 def make_tracking_fleet_rollout(
@@ -238,21 +319,45 @@ def make_tracking_fleet_rollout(
       plant's yaw is wrapped every tick, which keeps it inside the fast
       sin/cos range (|x| <= 60) for rollouts of any length; parity fleets
       keep the raw yaw (wrapping would change their cost)."""
+    dev = resolve_device(device)
+    loop = _tracking_loop_factory(problem, n_ticks, dt, record, engine, handoff_radius, (dev,))
+
+    def rollout(thetas, paths, U0s):
+        thetas, paths, U0s = _on(thetas, dev), _on(paths, dev), U0s.to(dev)
+        ((xs, goals, ct_sum, ct_max, traj),) = _lockstep([loop(thetas, paths, U0s)])
+        goal_dist = torch.linalg.vector_norm(xs[:, :2] - goals[:, :2], dim=-1)
+        return TrackingFleetResult(
+            final_states=xs,
+            goal_dist=goal_dist,
+            reach_fraction=(goal_dist < goal_threshold).to(_F32).mean(),
+            mean_cross_track=(ct_sum / n_ticks).mean(),
+            max_cross_track=ct_max.max(),
+            trajectories=torch.stack(traj) if record else None,
+        )
+
+    rollout.engines = loop.engines
+    return rollout
+
+
+def _tracking_loop_factory(problem, n_ticks, dt, record, engine, handoff_radius, devices):
+    """``loop(thetas, paths, U0s)``: the tracking closed loop of one bank as
+    a generator that yields after each tick and returns (final states, path
+    end poses, cross-track sum and max per robot, trajectory list or None).
+    The handoff gains are put on ``devices`` here, once, so that no tick
+    copies from the host."""
     if getattr(problem, "kind", None) != "tracking":
         raise ValueError(
             "make_tracking_fleet_rollout takes a tracking problem "
             "(solver.problems.make_tracking); goal-driven banks go to "
             "make_fleet_rollout"
         )
-    dev = resolve_device(device)
     solve_bank = _bank_solver(problem, engine, allow_tracking=True)
     N = problem.ocp.horizon
     wrap_state = "wrap_yaw" in getattr(problem.ocp, "meta", ())
     step = _plant(dt)
     two_pi = 2.0 * math.pi
-    if handoff_radius is not None:
-        hq = torch.tensor(DEFAULT_HANDOFF_Q, dtype=_F32, device=dev)
-        htw = torch.tensor(DEFAULT_HANDOFF_TERMINAL, dtype=_F32, device=dev)
+    for d in devices:  # fill the constants' caches outside any tick
+        _HANDOFF_Q(d), _HANDOFF_TERMINAL(d)
 
     def plant(x, u):
         xn = step(x, u)
@@ -261,11 +366,12 @@ def make_tracking_fleet_rollout(
             xn = torch.cat([xn[:, :2], (yaw - two_pi * torch.round(yaw / two_pi))[:, None]], dim=1)
         return xn
 
-    def rollout(thetas, paths, U0s):
-        thetas, paths, U0s = _on(thetas, dev), _on(paths, dev), U0s.to(dev)
+    def loop(thetas, paths, U0s):
+        dev = U0s.device
         wps, yaw, speed, omega = paths["wps"], paths["yaw"], paths["speed"], paths["omega"]
         goals = torch.cat([wps[:, -1], yaw[:, -1:]], dim=1)  # (B, 3): the path's end pose
         B = goals.shape[0]
+        hq, htw = _HANDOFF_Q(dev), _HANDOFF_TERMINAL(dev)
         xs, warm = thetas["x0"], U0s
         latched = torch.zeros(B, dtype=torch.bool, device=dev)
         ct_sum = torch.zeros(B, dtype=_F32, device=dev)
@@ -289,17 +395,48 @@ def make_tracking_fleet_rollout(
             ct_max = torch.maximum(ct_max, ct)
             if record:
                 traj.append(xs)
-        goal_dist = torch.linalg.vector_norm(xs[:, :2] - goals[:, :2], dim=-1)
+            yield
+        return xs, goals, ct_sum, ct_max, traj
+
+    loop.engines = (solve_bank,)
+    return loop
+
+
+def make_sharded_tracking_fleet_rollout(
+    problem,
+    mesh,
+    n_ticks: int,
+    dt: float,
+    goal_threshold: float = 0.2,
+    record: bool = False,
+    engine="cuda",
+    handoff_radius: Optional[float] = DEFAULT_HANDOFF_RADIUS,
+):
+    """:func:`make_tracking_fleet_rollout` over a device mesh: robots are
+    independent (each follows its own path), so each shard runs the whole
+    closed loop on its slot's device, the shards' ticks interleaved, and
+    only the fleet statistics reduce across the mesh.
+    ``rollout(thetas, paths, U0s) -> TrackingFleetResult`` with the inputs
+    sharded (or whole banks) and ``final_states``, ``goal_dist`` and
+    ``trajectories`` :class:`~.mesh.Sharded`."""
+    loop = _tracking_loop_factory(problem, n_ticks, dt, record, engine, handoff_radius, mesh.devices)
+
+    def rollout(thetas, paths, U0s):
+        th, P, U = shard_bank(thetas, mesh), shard_bank(paths, mesh), shard_bank(U0s, mesh)
+        outs = _lockstep([loop(t, p, u) for t, p, u in zip(th.shards, P.shards, U.shards)])
+        xs, goals, ct_sum, ct_max, trajs = zip(*outs)
+        goal_dist = [torch.linalg.vector_norm(x[:, :2] - g[:, :2], dim=-1) for x, g in zip(xs, goals)]
+        n = xs[0].shape[0] * mesh.size
         return TrackingFleetResult(
-            final_states=xs,
-            goal_dist=goal_dist,
-            reach_fraction=(goal_dist < goal_threshold).to(_F32).mean(),
-            mean_cross_track=(ct_sum / n_ticks).mean(),
-            max_cross_track=ct_max.max(),
-            trajectories=torch.stack(traj) if record else None,
+            final_states=Sharded(tuple(xs), mesh),
+            goal_dist=Sharded(tuple(goal_dist), mesh),
+            reach_fraction=reduce_parts(mesh, [(d < goal_threshold).to(_F32).sum() for d in goal_dist], "sum") / n,
+            mean_cross_track=reduce_parts(mesh, [(c / n_ticks).sum() for c in ct_sum], "sum") / n,
+            max_cross_track=reduce_parts(mesh, [c.max() for c in ct_max], "max"),
+            trajectories=Sharded(tuple(torch.stack(t) for t in trajs), mesh, dim=1) if record else None,
         )
 
-    rollout.engines = (solve_bank,)
+    rollout.engines = loop.engines
     return rollout
 
 
@@ -403,7 +540,7 @@ def make_generic_fleet_rollout(
     def rollout(thetas, U0s):
         thetas, U0s = _on(thetas, dev), U0s.to(dev)
         pd = 3 if thetas["goal"].shape[-1] >= 4 else 2
-        xs, traj = _goal_loop(solve_bank, plant, n_ticks, record, thetas, U0s)
+        ((xs, traj),) = _lockstep([_goal_loop(solve_bank, plant, n_ticks, record, thetas, U0s)])
         return _summary(xs, thetas["goal"], pd, goal_threshold, traj)
 
     rollout.engines = (solve_bank,)
@@ -473,41 +610,14 @@ def make_swarm_rollout(
     2pi-periodic in the state yaw): with K1's fast sin/cos (valid for
     |x| <= 60 rad) that bounds a rollout to ~1500 ticks at the reference's
     0.2 rad/s turn-rate cap."""
-    if k_neighbors < 1:
-        raise ValueError("k_neighbors must be >= 1")
-    if len(predict_taus) < 1:
-        raise ValueError("predict_taus must name at least one horizon offset")
     dev = resolve_device(device)
-    solve_bank = _bank_solver(problem, engine)
-    plant = _plant(dt)
-    taus = torch.tensor(predict_taus, dtype=_F32, device=dev)
+    loop = _swarm_loop_factory(problem, n_ticks, dt, k_neighbors, predict_taus, record, engine, (dev,))
 
     def rollout(thetas, U0s):
         thetas, U0s = _on(thetas, dev), U0s.to(dev)
-        x0s = thetas["x0"]
-        B = x0s.shape[0]
-        if k_neighbors >= B:
-            raise ValueError(f"k_neighbors={k_neighbors} must be < fleet size {B}")
-        if k_neighbors * len(predict_taus) > thetas["obs_x"].shape[1]:
-            raise ValueError("k_neighbors * len(predict_taus) exceeds the obstacle slots")
-        self_mask = torch.eye(B, dtype=_F32, device=dev) * 1e9
-        xs, prev_pos, warm = x0s, x0s[:, :2], U0s
-        sep = torch.full((B,), math.inf, dtype=_F32, device=dev)
-        traj = [xs] if record else None
-        for _ in range(n_ticks):
-            pos = xs[:, :2]
-            vel = (pos - prev_pos) / dt
-            diff = pos[:, None, :] - pos[None, :, :]
-            d2 = (diff * diff).sum(-1) + self_mask
-            _, idx = torch.topk(-d2, k_neighbors, dim=1)
-            th = _swarm_obstacle_theta(thetas, xs, pos[idx], vel[idx], taus)
-            sols = solve_bank(th, warm)
-            xs = plant(xs, _first_control(sols))
-            warm = _shift(sols.U)
-            sep = torch.minimum(sep, torch.sqrt(d2.amin(dim=1)))
-            prev_pos = pos
-            if record:
-                traj.append(xs)
+        _check_swarm(thetas, k_neighbors, predict_taus)
+        # one shard: the gathered table of positions and velocities is its own
+        ((xs, sep, traj),) = _lockstep([loop(thetas, U0s, 0, U0s.shape[0])], exchange=lambda msgs: msgs)
         goal_dist = torch.linalg.vector_norm(xs[:, :2] - thetas["goal"][:, :2], dim=-1)
         return SwarmResult(
             final_states=xs,
@@ -518,7 +628,102 @@ def make_swarm_rollout(
             trajectories=torch.stack(traj) if record else None,
         )
 
-    rollout.engines = (solve_bank,)
+    rollout.engines = loop.engines
+    return rollout
+
+
+def _check_swarm(thetas, k_neighbors, predict_taus, B=None):
+    B = thetas["x0"].shape[0] if B is None else B
+    if k_neighbors >= B:
+        raise ValueError(f"k_neighbors={k_neighbors} must be < fleet size {B}")
+    if k_neighbors * len(predict_taus) > thetas["obs_x"].shape[1]:
+        raise ValueError("k_neighbors * len(predict_taus) exceeds the obstacle slots")
+
+
+def _swarm_loop_factory(problem, n_ticks, dt, k_neighbors, predict_taus, record, engine, devices):
+    """``loop(thetas, U0s, offset, B_total)``: the swarm closed loop of one
+    shard (global robots ``offset .. offset + b - 1`` of ``B_total``) as a
+    generator. At the start of each tick it yields its robots' (b, 4)
+    positions and velocities and is sent back the fleet's (B_total, 4)
+    table; it searches its robots' neighbors in that table, excluding
+    itself by global index, solves, actuates and shifts; it returns (final
+    states, closest distance each robot ever saw, trajectory list or
+    None). The prediction offsets are put on ``devices`` here, once."""
+    if k_neighbors < 1:
+        raise ValueError("k_neighbors must be >= 1")
+    if len(predict_taus) < 1:
+        raise ValueError("predict_taus must name at least one horizon offset")
+    solve_bank = _bank_solver(problem, engine)
+    plant = _plant(dt)
+    taus = {indexed_device(d): torch.tensor(predict_taus, dtype=_F32, device=d) for d in devices}
+
+    def loop(thetas, U0s, offset, B_total):
+        x0s = thetas["x0"]
+        dev, b = x0s.device, x0s.shape[0]
+        col = torch.arange(B_total, device=dev)
+        row = torch.arange(b, device=dev) + offset
+        self_mask = torch.where(col[None, :] == row[:, None], 1e9, 0.0)
+        xs, prev_pos, warm = x0s, x0s[:, :2], U0s
+        sep = torch.full((b,), math.inf, dtype=_F32, device=dev)
+        traj = [xs] if record else None
+        for _ in range(n_ticks):
+            pos = xs[:, :2]
+            vel = (pos - prev_pos) / dt
+            table = yield torch.cat([pos, vel], dim=1)
+            all_pos, all_vel = table[:, :2], table[:, 2:]
+            diff = pos[:, None, :] - all_pos[None, :, :]
+            d2 = (diff * diff).sum(-1) + self_mask
+            _, idx = torch.topk(-d2, k_neighbors, dim=1)
+            th = _swarm_obstacle_theta(thetas, xs, all_pos[idx], all_vel[idx], taus[dev])
+            sols = solve_bank(th, warm)
+            xs = plant(xs, _first_control(sols))
+            warm = _shift(sols.U)
+            sep = torch.minimum(sep, torch.sqrt(d2.amin(dim=1)))
+            prev_pos = pos
+            if record:
+                traj.append(xs)
+        return xs, sep, traj
+
+    loop.engines = (solve_bank,)
+    return loop
+
+
+def make_sharded_swarm_rollout(
+    problem,
+    mesh,
+    n_ticks: int,
+    dt: float,
+    k_neighbors: int = 4,
+    predict_taus=DEFAULT_PREDICT_TAUS,
+    goal_threshold: float = 0.2,
+    record: bool = False,
+    engine="cuda",
+):
+    """:func:`make_swarm_rollout` over a 1D device mesh. The swarm couples
+    robots: every tick each shard's positions and velocities are gathered
+    onto every slot's device (a non-blocking copy per shard in one process,
+    ``all_gather_into_tensor`` across ranks: :func:`~.mesh.gather_rows`),
+    and each shard searches its robots' neighbors against the global table,
+    excluding each robot itself by its global index. Solve, plant and warm
+    start stay on the shard; the shards' ticks are interleaved.
+    ``rollout(thetas, U0s) -> SwarmResult`` with ``final_states``,
+    ``goal_dist`` and ``trajectories`` :class:`~.mesh.Sharded`; the
+    statistics reduce across the mesh."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError("swarm sharding expects a 1D mesh (one robot axis)")
+    loop = _swarm_loop_factory(problem, n_ticks, dt, k_neighbors, predict_taus, record, engine, mesh.devices)
+
+    def rollout(thetas, U0s):
+        th, U = shard_bank(thetas, mesh), shard_bank(U0s, mesh)
+        b = U.shards[0].shape[0]
+        _check_swarm(th.shards[0], k_neighbors, predict_taus, B=b * mesh.size)
+        loops = [loop(t, u, (mesh.first_shard + i) * b, b * mesh.size) for i, (t, u) in enumerate(zip(th.shards, U.shards))]
+        outs = _lockstep(loops, exchange=lambda msgs: gather_rows(mesh, msgs))
+        xs, sep, trajs = zip(*outs)
+        res = _sharded_summary(mesh, list(xs), [t["goal"] for t in th.shards], goal_threshold, trajs if record else None)
+        return SwarmResult(*res[:4], min_separation=reduce_parts(mesh, [s.amin() for s in sep], "min"), trajectories=res[4])
+
+    rollout.engines = loop.engines
     return rollout
 
 

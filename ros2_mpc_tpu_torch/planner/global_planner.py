@@ -13,7 +13,7 @@ ros2_mpc/planner/global_planner.py, rebuilt without the reference's
 
 Planning is host-side (latency-tolerant at the reference's 1 Hz replan rate).
 The port's own copy of :mod:`ros2_mpc_tpu.planner.global_planner`; the
-JAX package's wavefront distance fields are not ported yet.
+wavefront distance fields are in :mod:`.wavefront`.
 """
 
 from __future__ import annotations

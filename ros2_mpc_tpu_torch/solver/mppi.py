@@ -16,9 +16,12 @@ function.
 
 Sampling uses AR(1)-filtered Gaussian noise along the horizon (white noise
 in the control sequence excites chatter the unicycle cannot execute). An
-explicit ``torch.Generator`` takes the place of the JAX PRNG key; the white
-draws come from one helper, :func:`_white_noise`, which a test can replace
-to feed the JAX package's own draws. The KKT residual's gradient is
+explicit ``torch.Generator`` takes the place of the JAX PRNG key, or a
+:class:`ScenarioStreams`, whose draws for a scenario depend on its global
+index only (the device mesh's engines use it, so that a sharded bank draws
+what the whole bank draws); the white draws come from one helper,
+:func:`_white_noise`, which a test can replace to feed the JAX package's own
+draws. The KKT residual's gradient is
 ``torch.func.grad`` of the summed bank cost (the costs are separable over
 scenarios).
 
@@ -71,10 +74,55 @@ class MppiSettings:
     kkt_tol: float = 1e-2
 
 
-def _white_noise(generator: torch.Generator, t: int, shape: tuple, device) -> torch.Tensor:
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(a, c: int):
+    """``a * c mod 2**32`` for ``a`` in [0, 2**32) (an int64 tensor or an
+    int), in 16-bit halves so that no product leaves int64."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def _mix32(x):
+    """A 32-bit integer hash (lowbias32: two xor-shift-multiply rounds),
+    on an int64 tensor of values in [0, 2**32) or on an int."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+class ScenarioStreams:
+    """A noise source for a bank whose rows are global scenarios
+    ``offset .. offset + B - 1``: pass it to a solve in place of a
+    ``torch.Generator``. Every draw is a hash of ``(seed, global scenario,
+    iteration, element)`` turned into a standard normal (23 bits of the hash
+    as a uniform in (0, 1), then the inverse normal CDF), so a scenario's
+    noise depends on the seed and its global index only: a bank split into
+    shards draws what the whole bank draws, row for row, as the JAX
+    package's ``fold_in(key, global index)`` keys do."""
+
+    def __init__(self, seed: int = 0, offset: int = 0):
+        self.seed, self.offset = int(seed), int(offset)
+
+    def normal(self, t: int, shape: tuple, device) -> torch.Tensor:
+        """Iteration ``t``'s draws, ``shape = (N, B, S, m)``."""
+        N, B, S, m = shape
+        rows = torch.arange(self.offset, self.offset + B, dtype=torch.int64, device=device)
+        key = _mix32(_mix32(_mix32(self.seed & _U32) ^ rows) ^ (t & _U32))  # (B,)
+        elem = _mix32(torch.arange(N * S * m, dtype=torch.int64, device=device) + 1).reshape(N, 1, S, m)
+        bits = _mix32(key[None, :, None, None] ^ elem) >> 9  # 23 bits: bits + 0.5 exact in float32
+        return torch.special.ndtri((bits.to(_F32) + 0.5) * 2.0**-23)
+
+
+def _white_noise(generator, t: int, shape: tuple, device) -> torch.Tensor:
     """Iteration ``t``'s standard-normal draws, ``shape = (N, B, S, m)``: the
-    one place MPPI draws randomness (the JAX package draws ``(N, S, m)`` per
+    one place MPPI draws randomness, from a ``torch.Generator`` or a
+    :class:`ScenarioStreams` (the JAX package draws ``(N, S, m)`` per
     scenario from ``split(key, n_iters)[t]``)."""
+    if isinstance(generator, ScenarioStreams):
+        return generator.normal(t, shape, device)
     return torch.randn(shape, generator=generator, dtype=_F32, device=device)
 
 

@@ -184,9 +184,8 @@ def test_global_costmap_file_reload_variant():
     assert node.tick()["status"] == "published"
 
 
-def test_unported_options_raise():
-    """Both options are ported now (the name is kept from when they raised):
-    the mapper map source builds, its /map fully unknown at the start, and
+def test_mapper_source_and_escape_options_build():
+    """The mapper map source builds, its /map fully unknown at the start, and
     an unknown map source raises ValueError. With ``escape_after`` each
     follower builds, and a forced stall makes exactly one escape tick, on the multistart engine (K1 for
     the point follower, K2 for the path follower, their plain versions

@@ -150,9 +150,8 @@ def test_settings_presets_match_jax():
         np.testing.assert_allclose(t.mu_schedule_np(), np.asarray(j.mu_schedule()), rtol=1e-6)
 
 
-def test_horizon_parallel_is_not_ported_yet():
-    """The horizon-parallel sweep is ported (solver/parallel_riccati.py; the
-    name is kept from when make_solver refused it): the port's
+def test_horizon_parallel_matches_jax():
+    """The horizon-parallel sweep (solver/parallel_riccati.py): the port's
     ``make_solver(horizon_parallel=True)`` against the JAX package's on the
     live-obstacle bank, at the live band."""
     j_par = js.SolverSettings(horizon_parallel=True, **{k: getattr(J_FAST, k) for k in ("barrier_stages", "iters_per_stage", "n_alphas")})
