@@ -29,6 +29,39 @@ runs the main path through the entry points a user calls:
   and its first 5 solves of each path must be bit-equal to the plain
   versions; then a tick with a NaN goal must neither raise nor hang.
 
+Then the deploy phase, the arguments of the JAX package's entry points
+that the port restored, run on the card. P is ``Params.load`` of the
+package's params.yaml with goal_threshold 0.25 (``Params()``: 0.2):
+
+* the f64 oracle (``tests/oracle.py``, numpy and scipy) on the kernels' own
+  outputs: the banks of tests/test_oracle_sweep.py (``tests/oracle_banks.py``:
+  point stabilization, seed 42, 32 scenarios; corrected obstacles, seed 7,
+  32; tracking, seed 11, 32; the warm realtime schedule, seed 19, 8
+  scenarios x 4 ticks; terminal-weight tracking, seed 13, 16) through K1
+  and K2, and the quadrotor's 16 scenarios (seed 11) through the generic
+  engine, polished in two worker processes beside the later phases and
+  judged by that file's rules;
+* ``build_live_stack(params=P, map_image=, map_info=, start_pose=,
+  global_costmap=True, viz_period=)`` on ``maps/map_home.pgm`` (314 x 224
+  cells), from (-2.6, -3.4, 0) to (2.4, -3.4) under a 45 s budget: P in
+  every node, the goal reached with no control miss;
+* the home map's routes (tests/test_carto_map.py:57-80: three for the
+  point follower, one for the tracking follower) through
+  ``build_sim_stack(map_image=...)``, at most 700 ticks each: reached with
+  no collision on any tick, the ticks beside the JAX package's;
+* ``MultiRobotSim(starts, P, map_image=, map_info=)``: two point robots on
+  the home map, at most 300 ticks, both reached, the minimum separation;
+* ``make_multistart_solver(include_mppi=False)`` on the obstacle-active
+  bank's first 512 rows (one K1 call of 2,560 rows) beside plain K1.
+
+Every kernel call of those runs at a shape no earlier phase holds keeps
+five calls (``CudaBankSolver.record``) for the plain checks below. The
+autonomy phase's compat workers add one corrected ``perform_mpc`` of each
+adapter, its multi-process run takes P, an explicit start pose and
+explicit roles, and the scale phase runs ``multistart_rescue`` with the
+harness's short rescue schedule beside the same engine on
+``rescue_schedule()``.
+
 Then the robustness composites (``solver/rescue.py``,
 ``solver/multistart_bank.py``, ``solver/batched.py``), each kernel
 composite's launch counters zeroed just before its counted call and read
@@ -57,7 +90,7 @@ Then the fleets and the sampling engines (``parallel/fleet.py``,
 ``solver/mppi.py``) at ``bench.py``'s widths, 1024 robots: the tracking
 fleet (64 ticks, K2), the swarm (the 32x32 grid swap, 128 ticks, K1),
 ``device_tick_rate`` and its rollout (64 ticks, K1), the generic quadrotor
-fleet (plain PyTorch, the ticks that fit in 60 s), the hybrid bank (MPPI,
+fleet (plain PyTorch, the ticks that fit in 30 s), the hybrid bank (MPPI,
 then two K1 calls) and the point follower's escape tick. Each K1/K2 rollout
 runs once to warm up, then once with its counters zeroed, every kernel call
 recorded and ``torch.cuda.set_sync_debug_mode("error")`` on: it must launch
@@ -97,7 +130,7 @@ shard (U, X, cost, KKT residual, n_iters), with ``bank_metrics`` beside the
 gathered bank's numbers; each engine of the menu through
 ``scaling_bench.run``, its throughput on one shard and on four (the ceiling
 on one card is 1/4) and shard 0 equal to one shard, the K1-bearing engines
-at 512 a shard, ``vmap`` and ``fast`` (plain PyTorch) at 16 and N=10 with
+at 512 a shard, ``vmap`` and ``fast`` (plain PyTorch) at 16 and N=5 with
 the short schedule, each no worse than K1 where the JAX suite says so; the sharded
 point fleet, tracking fleet and swarm at the fleets phase's widths,
 bit-equal to their unsharded runs and free of host syncs; BASELINE.json
@@ -114,8 +147,9 @@ kernel's own, and the wrapper's pre-build mirror of it must agree. Each
 kernel is held against its plain PyTorch version on the same inputs on the
 card: bit for bit (``torch.equal`` on U, X, cost, KKT residual and
 n_iters) on every bank and tick, with the deviation bands printed beside
-(the banks' and composites' plain versions in six worker processes, on CPU
-copies of the kernels' inputs);
+(every kept kernel call's plain version in six worker processes on the
+card, from CPU copies of the inputs the kernel was given: the banks, the
+ticks, the loops' and graphs' kept calls, the composites and fleets);
 and K1 against the port's algorithmic reference (``make_solver``, on the
 CPU) at a small size. The kernels' launch counters are zeroed just
 before the main path and read just after. Then kernel and plain version are
@@ -182,7 +216,7 @@ MAX_SHARE = 1.05  # a share of a bound above this means a counting fault
 LOOP_HORIZON, LOOP_START, LOOP_GOAL, LOOP_MAX_TICKS = 20, (-1.0, -1.0, 0.0), (1.0, -1.0), 200
 JAX_LOOP_TICKS = {"point": 62, "tracking": 53}
 LOOP_TICK_BAND = (0.75, 1.5)
-LOOP_RECHECK = 5  # solves of each path re-solved through the plain version
+LOOP_RECHECK = 5  # kernel calls of each run held against the plain version
 NAN_TICK_S = 30.0  # a NaN-goal tick that takes longer has hung
 # The robustness composites (solver/rescue.py, multistart_bank.py,
 # batched.py) at bench.py's shapes: two-pass capacity 512 for the corrected
@@ -212,7 +246,7 @@ PLAIN_WORKERS, PLAIN_TIMEOUT_S = 6, 600.0
 # between its engines inside a closed loop, tests/test_tracking_fleet.py:107-112).
 FLEET_B, TRACK_FLEET_TICKS, SWARM_TICKS, TICK_RATE_TICKS = 1024, 64, 128, 64
 SWARM_SIDE = 32  # the grid swap's side: SWARM_SIDE**2 = FLEET_B robots
-QUAD_FLEET_TICKS, QUAD_FLEET_MAX_S = 40, 60.0
+QUAD_FLEET_TICKS, QUAD_FLEET_MAX_S = 40, 30.0
 FLEET_SMALL_B, FLEET_SMALL_TICKS, FLEET_CPU_ATOL = 16, 8, 2e-3
 # The hybrid bank (bench.py:257-290): the first 1024 rows of the
 # obstacle-active bank, MPPI 128 samples x 8 iterations, the polish on K1.
@@ -260,9 +294,44 @@ COMPAT_N = 10  # tests/test_compat.py's horizon
 # sharded tracking fleet, spread over their ticks and shards, and the N=256
 # call join the plain checks.
 SCALE_SHARDS, SCALE_PER_SHARD, SCALE_REPS = 4, 512, 1
-SCALE_SMALL_PER_SHARD, SCALE_SMALL_N = 16, 10
+SCALE_SMALL_PER_SHARD, SCALE_SMALL_N = 16, 5
 SWEEP_PER_CONFIG, SWEEP_CHUNK, SWEEP_DROPPED = 4096, 16384, (2, 5)
 LONG_N, SCALE_KEEP = 256, 5
+# The deploy phase: the arguments the port restored, on the card. P is
+# Params.load of a YAML that differs from Params() in goal_threshold (the
+# reference's params.yaml key): 0.25 m against 0.2 m. The home map
+# (maps/map_home.pgm, 314 x 224 cells) and the routes of
+# tests/test_carto_map.py:57-80 (three point routes, one tracking route),
+# horizon 20, at most 700 ticks each. The JAX package's ticks on them (its
+# build_sim_stack with Params() on the CPU, one run of those tests' routes):
+# 159, 222 and 186 for the point follower, 126 for the tracking follower.
+HOME_PGM, HOME_YAML = "maps/map_home.pgm", "maps/map_home.yaml"
+HOME_PAIRS = (
+    ((-2.6, -3.4, 0.0), (2.4, -3.4)),
+    ((1.65, 3.85, -np.pi / 2), (2.4, -3.0)),
+    ((-3.3, 3.0, 0.0), (1.0, 3.85)),
+)
+JAX_HOME_TICKS = {"point 0": 159, "point 1": 222, "point 2": 186, "tracking": 126}
+HOME_HORIZON, HOME_MAX_TICKS, DEPLOY_GOAL_THRESHOLD = 20, 700, 0.25
+# The live graph on the home map along the first route: the JAX package's
+# lock-step run takes 159 control ticks there, 31.8 s at the 5 Hz control
+# rate, so a 30 s budget cannot hold it; the budget is 45 s. One dashboard
+# frame every DEPLOY_VIZ_PERIOD s (a value Params() does not set).
+DEPLOY_LIVE_DURATION, DEPLOY_VIZ_PERIOD = 45.0, 2.0
+# MultiRobotSim with P: two robots from the first and third routes' starts
+MULTI_ROBOT_TICKS = 300
+# Each K1/K2 solve at a shape no earlier phase held: LOOP_RECHECK calls of
+# each run (one every DEPLOY_KEEP_EVERY, from the first) join the plain
+# checks, on the inputs the kernel was given.
+DEPLOY_KEEP_EVERY = 30
+# make_multistart_solver(include_mppi=False) on the obstacle-active bank's
+# first rows: the warm start and four arc seeds a scenario, one K1 call
+INCLUDE_MPPI_ROWS = 512
+# The f64 oracle (tests/oracle.py) on the kernels' own outputs: the five
+# kernel banks of tests/test_oracle_sweep.py (tests/oracle_banks.py) and the
+# quadrotor's 16 scenarios (the generic engine; the CPU test keeps 4),
+# polished in ORACLE_WORKERS processes beside the later phases.
+ORACLE_WORKERS, ORACLE_TIMEOUT_S = 2, 600.0
 
 
 def headline_bank(rng, B):
@@ -458,51 +527,45 @@ def tick_paths(inp, k1_tick, k2_tick):
     }
 
 
-class Recorder:
-    """Wraps a follower's packed solve: counts its calls, keeps the inputs
-    and Solution of ``keep`` calls (one every ``every``, from the first) and
-    the last Solution."""
+class KeptCalls(list):
+    """A ``CudaBankSolver.record`` that keeps ``keep`` of the kernel calls,
+    one every ``every`` from the first, with their inputs copied at the call
+    (a follower reuses its buffers from tick to tick), counts them all and
+    holds the last Solution."""
 
-    def __init__(self, solve, keep=5, every=1):
-        self.solve, self.keep, self.every, self.calls, self.kept, self.last = solve, keep, every, 0, [], None
+    def __init__(self, keep=LOOP_RECHECK, every=1):
+        super().__init__()
+        self.keep, self.every, self.calls, self.last = keep, every, 0, None
 
-    def __call__(self, vec, U0):
-        sol, U_next = self.solve(vec, U0)
-        if self.calls % self.every == 0 and len(self.kept) < self.keep:
-            self.kept.append((vec, U0, sol))
+    def append(self, item):
+        thetas, U0s, out = item
+        if self.calls % self.every == 0 and len(self) < self.keep:
+            super().append(({k: v.clone() for k, v in thetas.items()}, U0s.clone(), out))
         self.calls += 1
-        self.last = sol
-        return sol, U_next
+        self.last = out
 
 
-def hold_kept(label, rec, plain):
-    """Re-solve each solve ``rec`` kept through ``plain`` (the packed solve
-    over the engine's plain version) on the same inputs; raises unless every
-    field of each Solution is bit-equal. Returns max |dU|."""
-    import torch
-
-    err, unequal = 0.0, []
-    for i, (vec, U_in, sol) in enumerate(rec.kept):
-        ref, _ = plain(vec, U_in)
-        err = max(err, float((sol.U - ref.U).abs().max()))
-        fields = ("U", "X", "cost", "kkt_residual", "n_iters")
-        unequal += [f"solve {i} {k}" for k in fields if not torch.equal(getattr(sol, k), getattr(ref, k))]
-    which = f"first {len(rec.kept)} solves" if rec.every == 1 else f"{len(rec.kept)} solves (one in {rec.every})"
-    print(f"{label}: {which} bit-equal to the plain version {'yes' if not unequal else unequal}")
-    if unequal:
-        raise AssertionError(f"{label}: {unequal}")
-    return err
+def keep_calls(engines, every=1, keep=LOOP_RECHECK):
+    """Zero each CUDA bank solver's launch counter and give it a KeptCalls."""
+    for e in engines:
+        e.launches = 0
+        e.record = KeptCalls(keep, every)
 
 
-def record_point_follower(f, every):
-    """Wraps a point follower's packed solve in a Recorder that keeps
-    LOOP_RECHECK solves, one every ``every``. Returns (Recorder, the packed
-    solve over its engine's plain version)."""
-    from ros2_mpc_tpu_torch.solver.cuda_kernel import single_scenario
-    from ros2_mpc_tpu_torch.solver.packed import make_packed_point_stab
+def kept_checks(label, engines):
+    """The plain-check entries ``(name, kernel, [(solver, thetas, U0s,
+    Solution)])`` of each engine's kept calls (``{path name: engine}``);
+    detaches the records. Raises for an engine that launched but kept none."""
+    out = []
+    for name, e in engines.items():
+        calls, e.record = [(e, th, U, sol) for th, U, sol in e.record], None
+        if e.launches and not calls:
+            raise AssertionError(f"{label} {name}: {e.launches} launches and no call kept")
+        if calls:
+            kname = "K1" if e.kind == "point_stab" else "K2"
+            out.append((f"{label} {name} (B={calls[0][2].shape[0]}, N={e.cfg.N})", kname, calls))
+    return out
 
-    f._solve = rec = Recorder(f._solve, keep=LOOP_RECHECK, every=every)
-    return rec, make_packed_point_stab(f.problem, f.params, solve_fn=single_scenario(f.engine.plain))[0]
 
 
 def stage_p50s(stack):
@@ -515,56 +578,44 @@ def closed_loop(dev, follower):
     """The flagship flow through ``build_sim_stack``: the synthetic indoor
     map, 360-beam lidar, ``Params()``, horizon 20 (the handoff 40), start
     (-1, -1, 0), goal (1, -1), at most 200 ticks; the follower's engines'
-    launch counters zeroed just before the run. Returns (stack, {path name:
-    (engine, Recorder, plain packed solve)}, reached, ticks, pose)."""
+    launch counters zeroed just before the run and their first LOOP_RECHECK
+    calls kept. Returns (stack, {path name: engine}, reached, ticks, pose)."""
     from ros2_mpc_tpu_torch.nodes.launch import build_sim_stack
-    from ros2_mpc_tpu_torch.solver.cuda_kernel import single_scenario
-    from ros2_mpc_tpu_torch.solver.packed import make_packed_point_stab, make_packed_tracking
 
     stack = build_sim_stack(follower=follower, horizon=LOOP_HORIZON, start_pose=LOOP_START, device=dev)
-    f, params = stack.follower, stack.params
+    f = stack.follower
     if follower == "point":
-        paths = {"K1 point": (f.engine, f.problem, make_packed_point_stab, "_solve")}
+        engines = {"K1 point": f.engine}
     else:
-        paths = {
-            "K2 tracking": (f.engine, f.problem, make_packed_tracking, "_solve"),
-            "K1 handoff": (f.handoff_engine, f._point_problem, make_packed_point_stab, "_point_solve"),
-        }
-    out = {}
-    for name, (engine, problem, make_packed, attr) in paths.items():
-        rec = Recorder(getattr(f, attr), keep=LOOP_RECHECK)
-        setattr(f, attr, rec)
-        plain = make_packed(problem, params, solve_fn=single_scenario(engine.plain))[0]
-        out[name] = (engine, rec, plain)
-    for engine, _, _ in out.values():
-        engine.launches = 0
+        engines = {"K2 tracking": f.engine, "K1 handoff": f.handoff_engine}
+    keep_calls(engines.values())
     reached, ticks, pose = stack.run_to_goal(LOOP_GOAL, max_ticks=LOOP_MAX_TICKS)
-    return stack, out, reached, ticks, pose
+    return stack, engines, reached, ticks, pose
 
 
 def closed_loop_phase(dev, card):
     """Both followers through ``closed_loop``, each follower's engines'
     counters zeroed just before its run and read just after; raises unless
     each reaches the goal within LOOP_TICK_BAND of the JAX package's ticks,
-    launches its kernel on every solve, its first solves are bit-equal to
-    the plain versions, and a NaN-goal tick degrades gracefully. Returns
-    ({"K1": launches, "K2": launches}, max |dU| against the plain version)."""
+    launches its kernel on every solve and a NaN-goal tick degrades
+    gracefully. Returns ({"K1": launches, "K2": launches}, plain-check
+    entries of each path's first LOOP_RECHECK kernel calls)."""
     import torch
 
     from ros2_mpc_tpu_torch.planner import native
 
-    loop_launches, loop_err = {"K1": 0, "K2": 0}, 0.0
+    loop_launches, checks = {"K1": 0, "K2": 0}, []
     for follower in ("point", "tracking"):
         t0 = time.perf_counter()
-        stack, loop_paths, reached, ticks, pose = closed_loop(dev, follower)
+        stack, engines, reached, ticks, pose = closed_loop(dev, follower)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         f = stack.follower
         solves = len(f.telemetry.series["solve_s"])
         sp, tp = f.telemetry.percentiles("solve_s"), stack.telemetry.percentiles("tick_s")
         stages = stage_p50s(stack)
-        launched = {name: e.launches for name, (e, _, _) in loop_paths.items()}
-        calls = {name: rec.calls for name, (_, rec, _) in loop_paths.items()}
+        launched = {name: e.launches for name, e in engines.items()}
+        calls = {name: e.record.calls for name, e in engines.items()}
         print(
             f"closed loop {follower} (horizon {LOOP_HORIZON}, start {LOOP_START}, goal {LOOP_GOAL}): reached "
             f"{reached}, ticks {ticks} (JAX package {JAX_LOOP_TICKS[follower]}), final pose "
@@ -578,20 +629,23 @@ def closed_loop_phase(dev, card):
             raise AssertionError(f"closed loop {follower}: reached {reached} in {ticks} ticks, band [{lo}, {hi}]")
         if sum(calls.values()) != solves or any(launched[n] < c or c == 0 for n, c in calls.items()):
             raise AssertionError(f"closed loop {follower}: launches {launched} for solves {calls} of {solves}")
-        for name, (engine, rec, plain) in loop_paths.items():
+        for name, engine in engines.items():
             loop_launches[name[:2]] += launched[name]
-            loop_err = max(loop_err, hold_kept(f"closed loop {follower} {name} (N={engine.cfg.N})", rec, plain))
             if name == "K1 handoff":  # the 2N geometry at B=1
                 check_geometry("K1 handoff", engine, 1)
+        checks += kept_checks(f"closed loop {follower}", engines)
         # one tick with a NaN goal: no raise, no hang, a finite command, and
         # the last one where the solve came back non-finite
-        u_before, calls_before = f.u_last.copy(), dict(calls)
+        keep_calls(engines.values(), keep=0)  # the tick's calls counted, none kept
+        u_before = f.u_last.copy()
         stack.publish_goal(float("nan"), 0.0)
         t0 = time.perf_counter()
         out = f.tick()
         nan_s = time.perf_counter() - t0
         cmd = stack.bus.latest(f.cmd_vel_publisher.topic)[0]
-        ran = [rec for n, (_, rec, _) in loop_paths.items() if rec.calls > calls_before[n]]
+        ran = [e.record for e in engines.values() if e.record.calls]
+        for e in engines.values():
+            e.record = None
         solve_finite = bool(torch.isfinite(ran[0].last.U[0]).all()) if ran else None
         command = np.array([cmd.linear_x, cmd.angular_z])
         print(
@@ -603,7 +657,7 @@ def closed_loop_phase(dev, card):
         if solve_finite is False and not np.array_equal(out["u"], u_before):
             raise AssertionError(f"closed loop {follower}: a non-finite solve did not fall back to the last command")
     print(f"closed loop: A* {'native (native/astar.cpp)' if native.load() is not None else 'Python (planner/astar_py.py)'}")
-    return loop_launches, loop_err
+    return loop_launches, checks
 
 
 def composite_kernels(comp):
@@ -1090,10 +1144,11 @@ def fleets_phase(dev, card, inp):
     return launches, checks, card_against_cpu
 
 
-def compat_calls(device):
+def compat_calls(device, reference_parity=True):
     """One ``PointStabilizationMpc.perform_mpc`` and one
-    ``TrackingMpc.perform_mpc`` (tests/test_compat.py's inputs, corrected
-    parity off, N=10) on ``device``: ({name: outputs}, {name: host ms})."""
+    ``TrackingMpc.perform_mpc`` (tests/test_compat.py's inputs, N=10) on
+    ``device``, in parity or corrected mode: ({name: outputs}, {name: host
+    ms})."""
     import torch
 
     from ros2_mpc_tpu_torch import compat
@@ -1110,7 +1165,7 @@ def compat_calls(device):
     }
     out, ms = {}, {}
     for name, args in calls.items():
-        mpc = getattr(compat, name)(Params(), horizon=COMPAT_N, device=device)
+        mpc = getattr(compat, name)(Params(), reference_parity=reference_parity, horizon=COMPAT_N, device=device)
         t0 = time.perf_counter()
         res = mpc.perform_mpc(np.zeros((2, COMPAT_N)), *args)  # ends on a read back
         ms[name] = (time.perf_counter() - t0) * 1e3
@@ -1123,7 +1178,7 @@ def autonomy_phase(dev, card):
     the live and the multi-process graphs and the compat adapters through
     the port's entry points on the card (module docstring). Raises on any
     failed check. Returns ({"K1": launches, "K2": launches} of the in-process
-    runs, max |dU| of K1's kept solves against its plain version)."""
+    runs, plain-check entries of K1's kept calls in the two mapping runs)."""
     import torch
 
     from ros2_mpc_tpu_torch.config import Params
@@ -1140,13 +1195,17 @@ def autonomy_phase(dev, card):
     from ros2_mpc_tpu_torch.planner import astar_path, wavefront
     from ros2_mpc_tpu_torch.utils import pgm
 
-    launches = {"K1": 0, "K2": 0}
+    launches, checks = {"K1": 0, "K2": 0}, []
     cpu = torch.device("cpu")
-    # the compat adapters run in two workers meanwhile, on the card and on
-    # CPU copies (make_solver is bound by its dispatch on the host: ~10-35 s
-    # a call on either); collected before the wall-clock graphs
-    with multiprocessing.get_context("spawn").Pool(2) as pool:  # terminated on exit
-        compat_runs = {d: pool.apply_async(compat_calls, (d,)) for d in (str(dev), "cpu")}
+    # the compat adapters run in four workers meanwhile, parity and corrected
+    # mode, on the card and on CPU copies (make_solver is bound by its
+    # dispatch on the host: ~10-35 s a call on either); collected before the
+    # wall-clock graphs
+    with multiprocessing.get_context("spawn").Pool(4) as pool:  # terminated on exit
+        compat_runs = {
+            (mode, d): pool.apply_async(compat_calls, (d, mode == "parity"))
+            for mode in ("parity", "corrected") for d in (str(dev), "cpu")
+        }
         # ---- the mapper: the same scans folded on the card and on the CPU
         sim = Simulator(MessageBus(), pgm.synthetic_indoor_map(), dict(pgm.DEFAULT_MAP_INFO), device=dev)
         rng = np.random.default_rng(9)
@@ -1201,8 +1260,7 @@ def autonomy_phase(dev, card):
 
         stack.mapper.tick = timed_fold
         f = stack.follower
-        rec, plain = record_point_follower(f, NWM_RECHECK_EVERY)
-        f.engine.launches = 0
+        keep_calls([f.engine], every=NWM_RECHECK_EVERY)
         reached, ticks, pose = stack.run_to_goal(NWM_GOAL, max_ticks=NWM_MAX_TICKS)
         torch.cuda.synchronize()
         solves, n_k1 = len(f.telemetry.series["solve_s"]), f.engine.launches
@@ -1222,10 +1280,10 @@ def autonomy_phase(dev, card):
         )
         if not reached or collided or ticks > NWM_TICK_BAND * JAX_NWM["ticks"]:
             raise AssertionError(f"navigate-while-mapping: reached {reached} in {ticks} ticks, collided {collided}")
-        if n_k1 != solves or rec.calls != solves or solves == 0:
+        if n_k1 != solves or f.engine.record.calls != solves or solves == 0:
             raise AssertionError(f"navigate-while-mapping: K1 launches {n_k1} for {solves} solves")
         launches["K1"] += n_k1
-        err = hold_kept(f"autonomy navigate-while-mapping K1 (B=1, N={f.engine.cfg.N})", rec, plain)
+        checks += kept_checks("autonomy navigate-while-mapping", {"K1": f.engine})
 
         # ---- frontier exploration: no goal, no map (tests/test_explorer.py's setup)
         t0 = time.perf_counter()
@@ -1235,8 +1293,7 @@ def autonomy_phase(dev, card):
         )
         explorer = ExplorerNode(stack.bus, stack.mapper, stack.params)
         f = stack.follower
-        rec, plain = record_point_follower(f, EXPLORE_RECHECK_EVERY)
-        f.engine.launches = 0
+        keep_calls([f.engine], every=EXPLORE_RECHECK_EVERY)
         complete, collisions, ticks = False, 0, 0
         for ticks in range(EXPLORE_MAX_TICKS):
             if explorer.tick()["status"] == "complete":
@@ -1261,10 +1318,10 @@ def autonomy_phase(dev, card):
         )
         if not complete or explorer.n_goals < 3 or unknown >= 0.6 or free <= 0.25 or collisions:
             raise AssertionError("exploration: outside tests/test_explorer.py's bounds")
-        if n_k1 != solves or rec.calls != solves or solves == 0:
+        if n_k1 != solves or f.engine.record.calls != solves or solves == 0:
             raise AssertionError(f"exploration: K1 launches {n_k1} for {solves} solves")
         launches["K1"] += n_k1
-        err = max(err, hold_kept(f"autonomy exploration K1 (B=1, N={f.engine.cfg.N})", rec, plain))
+        checks += kept_checks("autonomy exploration", {"K1": f.engine})
 
         # ---- the wavefront on the global planner's weights of the synthetic map
         sub = MapSubscriber(sim.bus)
@@ -1309,17 +1366,19 @@ def autonomy_phase(dev, card):
             raise AssertionError("wavefront: not the CPU's field or not the A* cost")
 
         # ---- the compat adapters on the card against their CPU copies
-        (card_out, card_ms), (cpu_out, cpu_ms) = (r.get(timeout=600) for r in compat_runs.values())
-    for name in card_out:
-        dU = float(np.abs(card_out[name][-1] - cpu_out[name][-1]).max())
-        print(
-            f"autonomy compat {name}.perform_mpc (N={COMPAT_N}, make_solver): card {card_ms[name]:.1f} ms, CPU "
-            f"{cpu_ms[name]:.1f} ms (host clock, one call each), max |dU| card against CPU {dU:.3e} (band "
-            f"{LIVE[0]}) -- {card}",
-            flush=True,
-        )
-        if not dU <= LIVE[0]:
-            raise AssertionError(f"compat {name}: the card and the CPU apart by {dU}")
+        compat_out = {key: r.get(timeout=600) for key, r in compat_runs.items()}
+    for mode in ("parity", "corrected"):
+        (card_out, card_ms), (cpu_out, cpu_ms) = compat_out[mode, str(dev)], compat_out[mode, "cpu"]
+        for name in card_out:
+            dU = float(np.abs(card_out[name][-1] - cpu_out[name][-1]).max())
+            print(
+                f"autonomy compat {name}.perform_mpc ({mode}, N={COMPAT_N}, make_solver): card {card_ms[name]:.1f} "
+                f"ms, CPU {cpu_ms[name]:.1f} ms (host clock, one call each), max |dU| card against CPU {dU:.3e} "
+                f"(band {LIVE[0]}) -- {card}",
+                flush=True,
+            )
+            if not dU <= LIVE[0]:
+                raise AssertionError(f"compat {name} ({mode}): the card and the CPU apart by {dU}")
 
     # ---- the wall-clock live graph through run_live (the stack it builds kept)
     built, build = [], live.build_live_stack
@@ -1348,13 +1407,23 @@ def autonomy_phase(dev, card):
         raise AssertionError(f"live graph: goal reached {stats['goal_reached']}, control {tasks['control']}")
     launches["K1"] += n_k1
 
-    # ---- the multi-process graph, every role on the card
+    # ---- the multi-process graph, every role on the card; the world role
+    # (here) with the deploy phase's P, as the JAX package hands params
+    # to the world role only
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        P = deploy_params(tmp)
+    roles = ("planner", "costmaps", "follower")
     t0 = time.perf_counter()
-    stats = run_multiprocess(follower="point", duration=MULTIPROC_DURATION, role_device=dev)
+    stats = run_multiprocess(
+        follower="point", duration=MULTIPROC_DURATION, start_pose=LOOP_START, params=P, roles=roles, role_device=dev
+    )
     roles = {"world": stats["tasks"], **{r: (s or {}).get("tasks") for r, s in stats["roles"].items()}}
     rates = {r: {n: round(t["rate_hz"], 2) for n, t in ts.items()} if ts else None for r, ts in roles.items()}
     print(
-        f"autonomy multi-process graph (run_multiprocess, point, roles on {dev}): goal reached "
+        f"autonomy multi-process graph (run_multiprocess, point, from {LOOP_START}, world role with P "
+        f"(goal_threshold {P.goal_threshold}), roles {roles} on {dev}): goal reached "
         f"{stats['goal_reached']} after {stats['elapsed_s']:.2f} s (wall {time.perf_counter() - t0:.1f} s), final "
         f"pose {np.round(stats['final_pose'], 3).tolist()}, failed roles {stats['failed_roles']}; rates [Hz] {rates} "
         f"(the follower role's K1 launches are in its own process, not counted here) -- {card}",
@@ -1363,7 +1432,235 @@ def autonomy_phase(dev, card):
     if not stats["goal_reached"] or stats["failed_roles"]:
         raise AssertionError(f"multi-process graph: goal reached {stats['goal_reached']}, failed {stats['failed_roles']}")
     print(f"launch counters of the autonomy phase: {launches}", flush=True)
-    return launches, err
+    return launches, checks
+
+
+def deploy_params(tmp):
+    """``Params.load`` of the package's params.yaml (the reference's keys)
+    with goal_threshold set to DEPLOY_GOAL_THRESHOLD, written under ``tmp``."""
+    import ros2_mpc_tpu_torch
+    from ros2_mpc_tpu_torch.config import Params
+
+    text = (Path(ros2_mpc_tpu_torch.__file__).parent / "assets" / "params.yaml").read_text()
+    line = f"goal_threshold: {Params().goal_threshold}"
+    if text.count(line) != 1:
+        raise AssertionError(f"params.yaml has no single '{line}'")
+    path = Path(tmp) / "params.yaml"
+    path.write_text(text.replace(line, f"goal_threshold: {DEPLOY_GOAL_THRESHOLD}"))
+    P = Params.load(str(path))
+    if P.goal_threshold != DEPLOY_GOAL_THRESHOLD or P == Params():
+        raise AssertionError(f"Params.load did not read {path}")
+    return P
+
+
+def oracle_check(name, cases, U, converged):
+    """``oracle_banks.check_family`` in a worker beside the card (raises
+    under the JAX file's rule). Returns (worst drift, seconds)."""
+    import oracle_banks
+
+    t0 = time.perf_counter()
+    return oracle_banks.check_family(name, cases, U, converged), time.perf_counter() - t0
+
+
+def deploy_phase(dev, card, inp):
+    """The restored arguments on the card (module docstring): the oracle
+    banks (their f64 polish left running in worker processes), the live
+    graph on the home map with P, the home routes, MultiRobotSim with P and
+    ``include_mppi=False``. Raises on any failed check. Returns
+    ({"K1": launches, "K2": launches}, plain-check entries of the kept
+    kernel calls, a function that waits for the oracle's verdicts)."""
+    import tempfile
+
+    import torch
+
+    from ros2_mpc_tpu_torch.nodes import live
+    from ros2_mpc_tpu_torch.nodes.launch import build_sim_stack
+    from ros2_mpc_tpu_torch.nodes.multi_robot import MultiRobotSim
+    from ros2_mpc_tpu_torch.solver.cuda_kernel import CudaBankSolver, make_cuda_point_stab_solver
+    from ros2_mpc_tpu_torch.solver.mppi import make_multistart_solver
+    from ros2_mpc_tpu_torch.utils import pgm
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))  # the workers get the same path
+    import oracle_banks
+
+    launches, checks = {"K1": 0, "K2": 0}, []
+    # ---- the oracle banks on the card, polished beside the later phases
+    # (the quadrotor's 16 first: its polish is the longest)
+    pool = multiprocessing.get_context("spawn").Pool(ORACLE_WORKERS)  # terminated by collect or at exit
+    families = ("quadrotor", "obstacles", "point_stab", "tracking", "terminal_tracking", "warm_realtime")
+    pending = {}
+    for name in families:
+        bank = oracle_banks.family_bank(name, dev)
+        solver = oracle_banks.engine(name, bank["problem"])
+        on_kernel = isinstance(solver, CudaBankSolver)
+        if on_kernel:
+            keep_calls([solver], every=1)
+        t0 = time.perf_counter()
+        U, converged = oracle_banks.solve_family(name, bank, solver)
+        secs = time.perf_counter() - t0
+        pending[name] = pool.apply_async(oracle_check, (name, bank["cases"], U, converged))
+        what = f"{'K1' if solver.kind == 'point_stab' else 'K2'}, {solver.launches} launches" if on_kernel else "the generic engine"
+        print(
+            f"deploy oracle bank {name} (seed {oracle_banks.FAMILIES[name][0]}, {len(bank['cases'])} scenarios, "
+            f"N={oracle_banks.N}): {what}, converged {float(np.mean(converged)):.4f}, {secs:.2f} s (host clock) -- {card}",
+            flush=True,
+        )
+        if not np.isfinite(U).all():
+            raise AssertionError(f"deploy oracle bank {name}: non-finite controls")
+        if on_kernel:
+            launches["K1" if solver.kind == "point_stab" else "K2"] += solver.launches
+            checks += kept_checks(f"deploy oracle {name}", {"bank": solver})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        P = deploy_params(tmp)
+        img = pgm.read_pgm(str(root / HOME_PGM))
+        meta = pgm.load_map_yaml(str(root / HOME_YAML))
+        info = {"resolution": meta["resolution"], "origin": meta["origin"]}
+        # ---- 1. the live graph on the home map with P
+        start, goal = HOME_PAIRS[0]
+        stack = live.build_live_stack(
+            follower="point", params=P, map_image=img, map_info=info, start_pose=start, horizon=HOME_HORIZON,
+            global_costmap=True, viz_dir=tmp, viz_period=DEPLOY_VIZ_PERIOD, device=dev,
+        )
+        nodes = [stack.sim, stack.follower, stack.global_planner]
+        nodes += [t.fn.__self__ for t in stack.scheduler.tasks if hasattr(getattr(t.fn, "__self__", None), "params")]
+        if any(n.params is not P for n in nodes) or stack.sim.occupied.shape != img.shape:
+            raise AssertionError("deploy live graph: P or the home map did not reach every node")
+        f = stack.follower
+        keep_calls([f.engine], every=DEPLOY_KEEP_EVERY)
+        stack.publish_goal(*goal)
+        t0 = time.perf_counter()
+        stats = stack.run(DEPLOY_LIVE_DURATION)
+        torch.cuda.synchronize()
+        tasks = stats["tasks"]
+        dist = float(np.linalg.norm(np.asarray(stats["final_pose"][:2]) - np.asarray(goal)))
+        rates = {n: f"{t['rate_hz']:.2f} Hz, misses {t['misses']}" for n, t in tasks.items()}
+        print(
+            f"deploy live graph (home map {img.shape[0]}x{img.shape[1]}, point, horizon {HOME_HORIZON}, P with "
+            f"goal_threshold {P.goal_threshold}, {start} to {goal}, viz every {DEPLOY_VIZ_PERIOD} s): goal reached "
+            f"{stats['goal_reached']} after {stats['elapsed_s']:.2f} s (budget {DEPLOY_LIVE_DURATION} s; wall "
+            f"{time.perf_counter() - t0:.1f} s with the warm-up), {dist:.4f} m from the goal, control misses "
+            f"{tasks['control']['misses']}, max late {tasks['control']['max_lateness_s'] * 1e3:.1f} ms; K1 launches "
+            f"{f.engine.launches} for {f.engine.record.calls} solves; tasks {rates} -- {card}",
+            flush=True,
+        )
+        if not stats["goal_reached"] or tasks["control"]["misses"] or dist > P.goal_threshold + 0.02:
+            raise AssertionError(f"deploy live graph: reached {stats['goal_reached']}, {dist} m, {tasks['control']}")
+        if f.engine.launches != f.engine.record.calls or tasks["viz"]["runs"] < 1:
+            raise AssertionError("deploy live graph: launches or viz frames")
+        launches["K1"] += f.engine.launches
+        checks += kept_checks("deploy live graph", {"K1": f.engine})
+
+        # ---- 2. the home routes through build_sim_stack
+        routes = [(f"point {i}", "point", s, g) for i, (s, g) in enumerate(HOME_PAIRS)]
+        routes.append(("tracking", "tracking", *HOME_PAIRS[0]))
+        for label, follower, start, goal in routes:
+            t0 = time.perf_counter()
+            stack = build_sim_stack(
+                follower=follower, map_image=img, map_info=info, start_pose=start, horizon=HOME_HORIZON, device=dev
+            )
+            f = stack.follower
+            engines = {"K1": f.engine} if follower == "point" else {"K2": f.engine, "K1 handoff": f.handoff_engine}
+            keep_calls(engines.values(), every=DEPLOY_KEEP_EVERY)
+            collided, tick = [], stack.tick
+
+            def tick_and_check(tick=tick, stack=stack, collided=collided):
+                out = tick()
+                collided.append(stack.sim.in_collision())
+                return out
+
+            stack.tick = tick_and_check
+            reached, ticks, pose = stack.run_to_goal(goal, max_ticks=HOME_MAX_TICKS)
+            torch.cuda.synchronize()
+            solves = len(f.telemetry.series["solve_s"])
+            sp, tp = f.telemetry.percentiles("solve_s"), stack.telemetry.percentiles("tick_s")
+            counts = {n: (e.launches, e.record.calls) for n, e in engines.items()}
+            print(
+                f"deploy home route {label} ({follower}, {[round(float(v), 3) for v in start]} to {goal}): reached {reached}, "
+                f"ticks {ticks} (JAX package {JAX_HOME_TICKS[label]}, ratio {ticks / JAX_HOME_TICKS[label]:.3f}), "
+                f"final pose {np.round(pose, 3).tolist()}, collided {any(collided)}; launches and solves {counts}; "
+                f"solve p50 {sp['p50'] * 1e3:.3f} ms, stack tick p50 {tp['p50'] * 1e3:.3f} ms (stage p50 "
+                f"{stage_p50s(stack)}); wall {time.perf_counter() - t0:.1f} s -- {card}",
+                flush=True,
+            )
+            if not reached or any(collided):
+                raise AssertionError(f"deploy home route {label}: reached {reached}, collided {any(collided)}")
+            if sum(c for _, c in counts.values()) != solves or any(n != c for n, c in counts.values()):
+                raise AssertionError(f"deploy home route {label}: launches and solves {counts} of {solves}")
+            for n, (k, _) in counts.items():
+                launches[n[:2]] += k
+            checks += kept_checks(f"deploy home route {label}", engines)
+
+        # ---- 3. MultiRobotSim on the home map with P
+        starts, goals = [HOME_PAIRS[0][0], HOME_PAIRS[2][0]], [HOME_PAIRS[0][1], HOME_PAIRS[2][1]]
+        t0 = time.perf_counter()
+        sim = MultiRobotSim(starts, P, follower="point", map_image=img, map_info=info, horizon=HOME_HORIZON, device=dev)
+        if any(st.params is not P or st.follower.params is not P for st in sim.stacks):
+            raise AssertionError("deploy multi-robot: P did not reach every robot's graph")
+        engines = {f"robot {i} K1": st.follower.engine for i, st in enumerate(sim.stacks)}
+        keep_calls(engines.values(), every=50)
+        res = sim.run_to_goals(goals, max_ticks=MULTI_ROBOT_TICKS)
+        torch.cuda.synchronize()
+        counts = {n: (e.launches, e.record.calls) for n, e in engines.items()}
+        print(
+            f"deploy multi-robot (home map, P, two point robots from {starts} to {goals}, at most "
+            f"{MULTI_ROBOT_TICKS} ticks): reached {res.reached} after {res.ticks} ticks, min separation "
+            f"{res.min_separation:.4f} m, static collision {res.collided_static}; launches and solves {counts}; wall "
+            f"{time.perf_counter() - t0:.1f} s -- {card}",
+            flush=True,
+        )
+        if not all(res.reached) or res.collided_static or any(n != c or c == 0 for n, c in counts.values()):
+            raise AssertionError(f"deploy multi-robot: {res.reached}, {res.collided_static}, {counts}")
+        launches["K1"] += sum(n for n, _ in counts.values())
+        checks += kept_checks("deploy multi-robot", engines)
+
+    # ---- 7. make_multistart_solver(include_mppi=False) beside plain K1
+    prob = inp.prob_c
+    th = {k: v[:INCLUDE_MPPI_ROWS].contiguous() for k, v in inp.th_obs.items()}
+    U0 = torch.zeros(INCLUDE_MPPI_ROWS, N, 2, device=dev)
+    ms = make_multistart_solver(prob.ocp, prob.settings, include_mppi=False, device=dev)
+    (k1_ms,) = ms.engines
+    keep_calls([k1_ms], every=1)
+    sol_ms = ms(th, U0, None)
+    torch.cuda.synchronize()
+    checks += kept_checks("deploy multistart without MPPI", {"K1": k1_ms})
+    n_ms = k1_ms.launches
+    launches["K1"] += n_ms
+    k1_plain = make_cuda_point_stab_solver(prob.ocp, prob.settings)
+    sol_k1 = k1_plain(th, U0)
+    launches["K1"] += k1_plain.launches
+    ms_ms, ms_k1 = cuda_ms(ms, th, U0, None, reps=3), cuda_ms(k1_plain, th, U0, reps=3)
+    conv_ms, conv_k1 = float(sol_ms.converged.float().mean()), float(sol_k1.converged.float().mean())
+    print(
+        f"deploy multistart without MPPI (make_multistart_solver(include_mppi=False), the obstacle-active bank's "
+        f"first {INCLUDE_MPPI_ROWS} rows, warm start + 4 arc seeds, one K1 call of {INCLUDE_MPPI_ROWS * 5} rows): "
+        f"converged {conv_ms:.4f} at {INCLUDE_MPPI_ROWS / ms_ms * 1e3:,.0f} solves/s ({ms_ms:.3f} ms), beside plain "
+        f"K1 on the same rows {conv_k1:.4f} at {INCLUDE_MPPI_ROWS / ms_k1 * 1e3:,.0f} solves/s ({ms_k1:.3f} ms) "
+        f"(CUDA events, median of 3); K1 launches {n_ms} -- {card}",
+        flush=True,
+    )
+    if n_ms != 1 or conv_ms < conv_k1 or not bool(torch.isfinite(sol_ms.U).all()):
+        raise AssertionError(f"deploy multistart without MPPI: launches {n_ms}, converged {conv_ms} < {conv_k1}")
+
+    def collect():
+        """Wait for each oracle polish (raises on a family off the oracle),
+        print the worst drifts, stop the workers."""
+        deadline = time.perf_counter() + ORACLE_TIMEOUT_S
+        try:
+            for name in families:
+                worst, secs = pending[name].get(timeout=max(1.0, deadline - time.perf_counter()))
+                band = {"obstacles": "2e-3", "quadrotor": "5e-3 of the box width for 0.9 of them, 2e-2 for all"}
+                print(
+                    f"deploy oracle {name}: the kernels' outputs within the f64 oracle's band, worst drift "
+                    f"{worst:.3e} (band {band.get(name, '1e-3')}; polished in {secs:.1f} s in its worker)",
+                    flush=True,
+                )
+        finally:
+            pool.terminate()
+
+    print(f"launch counters of the deploy phase: {launches}", flush=True)
+    return launches, checks, collect
 
 
 def scale_phase(dev, card, inp):
@@ -1438,6 +1735,10 @@ def scale_phase(dev, card, inp):
         ("cuda", "cuda", SCALE_PER_SHARD, N, {}),
         ("cuda (short schedule)", "cuda", SCALE_PER_SHARD, N, {"solver_settings": short}),
         *((e, e, SCALE_PER_SHARD, N, opts[e]) for e in ("mppi", "hybrid", "multistart", "two_pass", "multistart_bank", "multistart_rescue")),
+        # the same engine with its rescue pass on rescue_schedule(), the
+        # workload the harness ran before its options carried the short one
+        ("multistart_rescue (full rescue schedule)", "multistart_rescue", SCALE_PER_SHARD, N,
+         {k: v for k, v in opts["multistart_rescue"].items() if k != "rescue_settings"}),
         *((e, e, SCALE_SMALL_PER_SHARD, SCALE_SMALL_N, opts[e]) for e in ("vmap", "fast")),
     ):
         t0 = time.perf_counter()
@@ -1724,6 +2025,7 @@ def main() -> int:
     # ---- main path, with the launch counters zeroed just before
     for s in (k1, k2, k1_tick, k2_tick):
         s.launches = 0
+    keep_calls((k1_tick, k2_tick))  # the ticks' kernel calls, for the plain checks
     sol_main = k1(th_main, U0)
     sol_obs = k1(th_obs, U0)
     sol_trk = k2(th_trk, U0)
@@ -1736,29 +2038,20 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the main path")
 
     lap("main path")
-    # ---- 2-5. the ticks through the plain versions (the banks' plain
-    # versions run in worker processes after the composites, below)
+    # ---- 2-5. the ticks (their kernel calls join the plain checks in the
+    # worker processes after the scale phase, below)
     k1_cnt = make_cuda_point_stab_solver(prob.ocp, prob.settings, with_counters=True)
     k2_cnt = make_cuda_tracking_solver(prob_t.ocp, prob_t.settings, with_counters=True)
-    plain_paths = tick_paths(inp, k1_tick.plain, k2_tick.plain)
-    tick_errs = {}
+    tick_checks = kept_checks("main path 5 warm ticks, realtime,", {"K1 tick": k1_tick, "K2 tick": k2_tick})
     for name, (ticks, pose) in ran.items():
-        plain_tick, err, unequal = plain_paths[name][0], 0.0, []
-        for i, (vec, U_in, sol) in enumerate(ticks):
-            ref, _ = plain_tick(vec, U_in)
-            err = max(err, float((sol.U - ref.U).abs().max()))
-            fields = ("U", "X", "cost", "kkt_residual", "n_iters")
-            unequal += [f"tick {i} {f}" for f in fields if not torch.equal(getattr(sol, f), getattr(ref, f))]
         final = ticks[-1][2]
-        tick_errs[name] = err
         print(
-            f"{name} path (5 warm ticks, B=1, N={final.U.shape[0]}, realtime): max|dU| vs plain "
-            f"{err:.3e}, bit-equal to the plain version {'yes' if not unequal else unequal}, "
-            f"last tick converged {bool(final.converged)}, pose after 5 ticks {np.round(pose, 4).tolist()}",
+            f"{name} path (5 warm ticks, B=1, N={final.U.shape[0]}, realtime): last tick converged "
+            f"{bool(final.converged)}, pose after 5 ticks {np.round(pose, 4).tolist()}",
             flush=True,
         )
-        if unequal or not bool(torch.isfinite(final.U).all()):
-            raise AssertionError(f"{name} path: {unequal or 'non-finite U'}")
+        if not bool(torch.isfinite(final.U).all()):
+            raise AssertionError(f"{name} path: non-finite U")
     for name, (solve, pack_at, U_warm) in paths.items():
         lat = tick_latency(solve, pack_at, U_warm)
         print(
@@ -1773,15 +2066,21 @@ def main() -> int:
 
     lap("plain ticks and tick latency")
     # ---- the closed loop, run_sim_stack's scenario, for both followers
-    loop_launches, loop_err = closed_loop_phase(dev, card)
+    loop_launches, loop_checks = closed_loop_phase(dev, card)
 
     lap("closed loop")
+    # ---- the restored arguments: the oracle banks (their f64 polish beside
+    # the later phases), the live graph, the home routes, the multi-robot
+    # sim, include_mppi=False; their kept kernel calls join the plain checks
+    deploy_launches, deploy_checks, oracle_verdicts = deploy_phase(dev, card, inp)
+    lap("deploy")
     # ---- the robustness composites, each counted on its own call; then
     # every kernel call of the main path's banks and of those counted calls
     # through its plain version on CPU copies of the inputs the kernel was
     # given, in worker processes, side by side with the CPU check below
     # (nothing is timed on the card meanwhile), costliest first
     comp_launches, comp_checks = composites_phase(dev, card, inp)
+    comp_checks += tick_checks + loop_checks + deploy_checks
     lap("composites")
     # ---- the fleets and the sampling engines, each rollout counted on its
     # own run; their first and last ticks' kernel calls and the hybrid's
@@ -1791,7 +2090,8 @@ def main() -> int:
     lap("fleets")
     # ---- navigate-while-mapping, exploration, the wavefront, the live and
     # multi-process graphs and the compat adapters
-    auto_launches, auto_err = autonomy_phase(dev, card)
+    auto_launches, auto_checks = autonomy_phase(dev, card)
+    comp_checks += auto_checks
     lap("autonomy")
     # ---- the mesh, the sharded fleets, the sweep and the scaling harness on
     # four shards of the card; their kept shard calls join the plain checks
@@ -1869,6 +2169,8 @@ def main() -> int:
         if unequal:
             raise AssertionError(f"{line}: differs from the plain version")
     lap("plain versions of the banks, composites and fleets")
+    oracle_verdicts()
+    lap("the oracle's verdicts")
     # ---- 6. timing, kernel and plain version alternating
     times = {}
     for name, s, th in (("K1", k1, th_main), ("K2", k2, th_trk)):
@@ -2033,8 +2335,8 @@ def main() -> int:
             "source": "ros2_mpc_tpu_torch/csrc/point_stab.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:119",
             "launches": launches["K1"] + loop_launches["K1"] + comp_launches["K1"] + fleet_launches["K1"]
-            + auto_launches["K1"] + scale_launches["K1"] + dist_launches,
-            "max_abs_err": max(err1, tick_errs["K1 tick"], loop_err, comp_err["K1"], auto_err),
+            + auto_launches["K1"] + scale_launches["K1"] + dist_launches + deploy_launches["K1"],
+            "max_abs_err": max(err1, comp_err["K1"]),
             "ms": times["K1"][0],
             "plain_ms": times["K1"][1],
             "bound_ms": bounds["K1 headline"][0],
@@ -2047,8 +2349,8 @@ def main() -> int:
             "source": "ros2_mpc_tpu_torch/csrc/tracking.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:769",
             "launches": launches["K2"] + loop_launches["K2"] + comp_launches["K2"] + fleet_launches["K2"]
-            + auto_launches["K2"] + scale_launches["K2"],
-            "max_abs_err": max(err2, tick_errs["K2 tick"], loop_err, comp_err["K2"]),
+            + auto_launches["K2"] + scale_launches["K2"] + deploy_launches["K2"],
+            "max_abs_err": max(err2, comp_err["K2"]),
             "ms": times["K2"][0],
             "plain_ms": times["K2"][1],
             "bound_ms": bounds["K2 tracking"][0],

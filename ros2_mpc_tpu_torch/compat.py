@@ -27,10 +27,11 @@ Improvement over the reference: a non-convergent solve returns the best
 iterate instead of raising through ``opti.solve()``; pass ``strict=True``
 to restore raise-on-failure semantics.
 
-The adapters solve in reference-parity mode (the reference's quirks, which
-a migrating caller expects). ``device`` (``None``: the card; raises without
-one unless ``"cpu"`` is passed) holds the problem and its solve; arrays come in and go out as NumPy
-in the reference's layouts.
+``TrackingMpc`` and ``PointStabilizationMpc`` solve in reference-parity mode
+(the reference's quirks, which a migrating caller expects) unless given
+``reference_parity=False``, the corrected formulation. ``device`` (``None``:
+the card; raises without one unless ``"cpu"`` is passed) holds the problem
+and its solve; arrays come in and go out as NumPy in the reference's layouts.
 """
 
 from __future__ import annotations
@@ -75,12 +76,13 @@ class _MpcBase:
 
 
 class TrackingMpc(_MpcBase):
-    def __init__(self, params: Optional[Params] = None, *, horizon: Optional[int] = None,
-                 strict: bool = False, device=None):
+    def __init__(self, params: Optional[Params] = None, *, reference_parity: bool = True,
+                 horizon: Optional[int] = None, strict: bool = False, device=None):
         params = params or Params.load()
         self._params = params
         super().__init__(
-            make_tracking(params, reference_parity=True, horizon=horizon, device=device),
+            make_tracking(params, reference_parity=reference_parity, horizon=horizon,
+                          device=device),
             params, strict,
         )
 
@@ -96,13 +98,13 @@ class TrackingMpc(_MpcBase):
 
 
 class PointStabilizationMpc(_MpcBase):
-    def __init__(self, params: Optional[Params] = None, *, horizon: Optional[int] = None,
-                 strict: bool = False, device=None):
+    def __init__(self, params: Optional[Params] = None, *, reference_parity: bool = True,
+                 horizon: Optional[int] = None, strict: bool = False, device=None):
         params = params or Params.load()
         self._params = params
         super().__init__(
             make_point_stabilization(
-                params, reference_parity=True, horizon=horizon, device=device
+                params, reference_parity=reference_parity, horizon=horizon, device=device
             ),
             params, strict,
         )

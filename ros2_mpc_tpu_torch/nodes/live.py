@@ -192,39 +192,45 @@ class LiveStack:
         return stats
 
 
-START_POSE = (-1.0, -1.0, 0.0)  # the simulator's start: the lower room of the synthetic map
-VIZ_PERIOD = 1.0  # [s] between dashboard frames
-
-
 def build_live_stack(
     follower: str = "point",
+    params: Params = Params(),
     source: str = "sim",
+    map_image: Optional[np.ndarray] = None,
+    map_info: Optional[dict] = None,
+    start_pose=(-1.0, -1.0, 0.0),
     horizon: Optional[int] = None,
+    global_costmap: bool = True,
     viz_dir: Optional[str] = None,
+    viz_period: float = 1.0,
     follower_kwargs: Optional[dict] = None,
     safety_stop: Optional[float] = None,
     device=None,
 ) -> LiveStack:
     """Assemble the live-config node graph (launch_all.launch.py:8-64:
     follower + global path publisher + robot state publisher + both costmap
-    publishers) on wall-clock rate tasks, on ``device`` (``None``: the card),
-    with ``Params()``.
+    publishers) on wall-clock rate tasks, on ``device`` (``None``: the card).
+    ``params`` reaches every node built here (simulator, planner, costmaps,
+    follower, safety monitor); ``global_costmap=False`` builds no global
+    costmap node; ``viz_period`` [s] spaces the dashboard frames.
 
     ``source='sim'``: in-process simulator plays plant + lidar + localizer
-    on the synthetic indoor map, from ``START_POSE``.
+    on ``map_image``/``map_info`` (``None``: the synthetic indoor map), from
+    ``start_pose``.
     ``source='ros'``: attach an ``RclpyBusBridge`` (requires rclpy) — sensors
     and cmd_vel flow over DDS; rates and nodes are identical.
     """
     device = resolve_device(device)
-    params = Params()
     bus = MessageBus()
     stack_sim = None
     bridge = None
     tasks: list[Task] = []
 
     if source == "sim":
-        map_image, map_info = pgm.synthetic_indoor_map(), dict(pgm.DEFAULT_MAP_INFO)
-        stack_sim = Simulator(bus, map_image, map_info, start_pose=START_POSE, params=params, device=device)
+        if map_image is None:
+            map_image = pgm.synthetic_indoor_map()
+            map_info = dict(pgm.DEFAULT_MAP_INFO)
+        stack_sim = Simulator(bus, map_image, map_info, start_pose=start_pose, params=params, device=device)
         localizer = SimLocalization(bus, stack_sim)
         map_server = MapServerNode(bus, map_image=map_image, map_info=map_info)
         tasks.append(Task("localizer", params.state_publish_period, localizer.tick))
@@ -263,12 +269,13 @@ def build_live_stack(
 
     local_costmap = LocalCostmapNode(bus, params, device=device)
     tasks.append(Task("local_costmap", params.local_costmap_period, local_costmap.tick))
-    gc = GlobalCostmapNode(bus, params, device=device)
-    tasks.append(Task("global_costmap", params.local_costmap_period, gc.tick))
+    if global_costmap:
+        gc = GlobalCostmapNode(bus, params, device=device)
+        tasks.append(Task("global_costmap", params.local_costmap_period, gc.tick))
     if viz_dir is not None:
         from .viz_node import LiveVizNode
 
-        tasks.append(Task("viz", VIZ_PERIOD, LiveVizNode(bus, out_dir=viz_dir).tick))
+        tasks.append(Task("viz", viz_period, LiveVizNode(bus, out_dir=viz_dir).tick))
 
     stack = LiveStack(
         bus=bus,

@@ -11,7 +11,8 @@ them in the MPC's live soft costs — mutual avoidance falls out of the
 existing machinery with no robot-to-robot communication at all.
 
 Every robot's graph runs on ``device`` (``None``: the card): its simulator,
-costmaps and follower (K1 or K2 at B=1). The poses the runner compares are
+costmaps and follower (K1 or K2 at B=1), with the caller's ``params`` and
+map (``None``: the synthetic indoor map). The poses the runner compares are
 read back once per robot a round.
 """
 
@@ -21,6 +22,7 @@ import dataclasses
 
 import numpy as np
 
+from ..config import Params
 from ..utils import pgm
 from .launch import SimStack, build_sim_stack
 
@@ -40,16 +42,22 @@ class MultiRobotSim:
     def __init__(
         self,
         starts,
+        params: Params = Params(),
         follower: str = "point",
+        map_image=None,
+        map_info=None,
         horizon: int = 20,
         robot_radius: float = 0.15,
         device=None,
     ):
-        map_image, map_info = pgm.synthetic_indoor_map(), dict(pgm.DEFAULT_MAP_INFO)
+        if map_image is None:
+            map_image = pgm.synthetic_indoor_map()
+            map_info = dict(pgm.DEFAULT_MAP_INFO)
         self.robot_radius = robot_radius
         self.stacks: list[SimStack] = [
             build_sim_stack(
                 follower=follower,
+                params=params,
                 map_image=map_image,
                 map_info=map_info,
                 start_pose=tuple(start),

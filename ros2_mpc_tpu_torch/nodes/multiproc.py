@@ -65,8 +65,7 @@ STATUS_TOPIC = "_control_status"
 ROLES = ("world", "planner", "costmaps", "follower", "safety")
 SAFETY_STATUS_TOPIC = "_safety_status"
 ROLE_STATS_TOPIC = "_role_stats/"  # + role: each child's rate stats when it ends
-COMPUTE_ROLES = ("planner", "costmaps", "follower")  # the child processes (the safety role optional)
-START_POSE = (-1.0, -1.0, 0.0)  # the lower room of the synthetic map
+COMPUTE_ROLES = ("planner", "costmaps", "follower")  # the default child processes
 
 
 def publish_goal(bus, x: float, y: float, yaw: float = 0.0):
@@ -92,22 +91,27 @@ def build_role_tasks(
     params: Params,
     follower: str = "point",
     horizon: Optional[int] = None,
-    start_pose=START_POSE,
+    start_pose=(-1.0, -1.0, 0.0),
+    map_image=None,
+    map_info=None,
     cmd_topic: str = "cmd_vel",
     safety_stop: float = 0.25,
     device=None,
 ):
     """(tasks, extras) for one role, its tensors on ``device`` (``None``: the
-    card); the world role simulates the synthetic indoor map. Every role leads with a ``bus_spin`` task — the rclpy.spin_once
-    analogue pumping remote publishes into local callbacks — paced at twice
-    the fastest consumer rate."""
+    card); the world role simulates ``map_image``/``map_info`` (``None``: the
+    synthetic indoor map) from ``start_pose``. Every role leads with a
+    ``bus_spin`` task — the rclpy.spin_once analogue pumping remote publishes
+    into local callbacks — paced at twice the fastest consumer rate."""
     if role not in ROLES:
         raise ValueError(f"unknown role {role!r} (choose from {ROLES})")
     device = resolve_device(device)
     tasks = [Task("bus_spin", params.state_publish_period / 2, bus.spin_once)]
     extras: dict = {}
     if role == "world":
-        map_image, map_info = pgm.synthetic_indoor_map(), dict(pgm.DEFAULT_MAP_INFO)
+        if map_image is None:
+            map_image = pgm.synthetic_indoor_map()
+            map_info = dict(pgm.DEFAULT_MAP_INFO)
         sim = Simulator(bus, map_image, map_info, start_pose=start_pose, params=params, device=device)
         localizer = SimLocalization(bus, sim)
         robot_state = RobotStatePublisherNode(bus)
@@ -169,13 +173,15 @@ def run_role(
     duration: float,
     follower: str = "point",
     horizon: Optional[int] = None,
+    params: Optional[Params] = None,
     cmd_topic: str = "cmd_vel",
     safety_stop: float = 0.25,
     device=None,
 ) -> dict:
     """Run one role against an existing bus file until the duration expires
-    or a ``_shutdown`` broadcast arrives; publish its stats when it ends."""
-    params = Params()
+    or a ``_shutdown`` broadcast arrives; publish its stats when it ends.
+    ``params``: ``None`` is ``Params()``."""
+    params = params or Params()
     bus = SharedMemoryBus(bus_path)
     try:
         tasks, _ = build_role_tasks(
@@ -200,30 +206,45 @@ def run_multiprocess(
     follower: str = "point",
     duration: float = 60.0,
     goal=(1.0, -1.0),
+    start_pose=(-1.0, -1.0, 0.0),
     horizon: Optional[int] = 20,
+    params: Optional[Params] = None,
     bus_path: Optional[str] = None,
+    roles=COMPUTE_ROLES,
     role_device=None,
     safety_stop: Optional[float] = None,
 ) -> dict:
-    """Supervisor: spawn the compute roles as OS processes, run the world
-    role here (from ``START_POSE``, ``Params()``), stop everything once the
-    follower latches the goal. ``bus_path``: the bus file (default: a new
-    one under /dev/shm, removed at the end).
+    """Supervisor: spawn ``roles`` as OS processes, run the world role here
+    from ``start_pose``, stop everything once the follower latches the goal.
+    ``bus_path``: the bus file (default: a new one under /dev/shm, removed
+    at the end).
+
+    ``params`` (``None``: ``Params()``) reaches the world role only, as in
+    the JAX package: the child roles build ``Params()`` in ``run_role``, so
+    the simulator runs the caller's values and the planner, costmaps and
+    follower their defaults.
 
     ``role_device`` is the device of every role's tensors and solves, the
     world role's here included (``None``: the card; raises without one).
-    ``safety_stop`` adds the safety role (its own OS process):
-    the follower publishes cmd_vel_raw and the monitor gates to cmd_vel at
-    this stop distance [m]; the supervisor surfaces its counters as
-    stats["safety"].
+    ``safety_stop`` adds the safety role (its own OS process) where
+    ``roles`` lacks it: the follower publishes cmd_vel_raw and the monitor
+    gates to cmd_vel at this stop distance [m]; the supervisor surfaces its
+    counters as stats["safety"]. A role outside ``ROLES``, or ``"world"``,
+    raises ``ValueError`` before anything starts.
 
     Returns the world role's rate stats plus ``goal_reached`` /
     ``final_pose``, ``failed_roles`` and ``roles`` (each child role's rate
     stats, None for a role that did not end cleanly).
     """
-    params = Params()
+    params = params or Params()
+    unknown = [r for r in roles if r not in ROLES or r == "world"]
+    if unknown:
+        raise ValueError(
+            f"unknown child roles {unknown} (choose from {ROLES[1:]}; the world runs here)"
+        )
     role_device = resolve_device(role_device)
-    roles = COMPUTE_ROLES + (("safety",) if safety_stop is not None else ())
+    if safety_stop is not None and "safety" not in roles:
+        roles = tuple(roles) + ("safety",)
     cmd_topic = "cmd_vel_raw" if "safety" in roles else "cmd_vel"
     ctx = multiprocessing.get_context("spawn")  # CUDA cannot run in a forked child
     workdir = None
@@ -253,7 +274,9 @@ def run_multiprocess(
         for p in procs:
             p.start()
 
-        tasks, extras = build_role_tasks("world", bus, params, device=role_device)
+        tasks, extras = build_role_tasks(
+            "world", bus, params, start_pose=start_pose, device=role_device
+        )
         sim = extras["sim"]
         publish_goal(bus, goal[0], goal[1])
 

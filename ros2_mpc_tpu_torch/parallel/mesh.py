@@ -404,8 +404,10 @@ def make_bank_solver(problem, mesh: Mesh, engine="cuda", **engine_opts):
     * ``"multistart_bank"``: arc-seeded starts, opts ``swing_fracs=``,
       ``inner_engine=`` (``"cuda"``, ``"fast"``, ``"vmap"``; default
       ``"cuda"``);
-    * ``"multistart_rescue"``: multistart, rescue and KKT polish, opts
-      ``capacity=`` (per shard), ``swing_fracs=``, ``polish_iters=``,
+    * ``"multistart_rescue"``: multistart, rescue and KKT polish
+      (:func:`~ros2_mpc_tpu_torch.solver.rescue.make_multistart_two_pass_solver`),
+      opts ``capacity=`` (per shard), ``swing_fracs=``, ``rescue_settings=``,
+      ``rescue_swing_fracs=``, ``polish_iters=``, ``polish_capacity=``,
       ``inner_engine=``;
     * a callable ``engine(ocp, settings) -> solve_bank``, no opts.
 

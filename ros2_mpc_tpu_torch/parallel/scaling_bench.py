@@ -58,7 +58,10 @@ def engine_options(per_device_batch: int) -> dict:
         "multistart": {"settings": sampling},
         "two_pass": {"solver_settings": short, "capacity": cap, "rescue_settings": short},
         "multistart_bank": {"solver_settings": short, "swing_fracs": (1.0,)},
-        "multistart_rescue": {"solver_settings": short, "swing_fracs": (1.0,), "capacity": cap, "polish_iters": 2},
+        "multistart_rescue": {
+            "solver_settings": short, "swing_fracs": (1.0,), "capacity": cap,
+            "rescue_settings": short, "polish_iters": 2,
+        },
     }
 
 

@@ -285,7 +285,7 @@ def make_bank_solver_fast(ocp: OCP, settings: SolverSettings = SolverSettings())
     N, n, m = ocp.horizon, ocp.n_states, ocp.n_controls
     _probe_batch_semantics(ocp.transition, n, m)
     t = _BankTerms(ocp)
-    mus = [float(mu) for mu in settings.mu_schedule_np()]
+    mus = [float(mu) for mu in settings.mu_schedule()]
     n_alphas = settings.n_alphas
     u_lo, u_hi = device_constant(ocp.u_lo), device_constant(ocp.u_hi)
 

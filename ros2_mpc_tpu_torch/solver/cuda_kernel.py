@@ -147,7 +147,7 @@ def _bank_config(ocp: OCP, settings: SolverSettings, stage_tol, fast_sincos, wra
         hi_w=float(hi[1]),
         eps_v=float(eps[0]),
         eps_w=float(eps[1]),
-        mus=tuple(float(m) for m in settings.mu_schedule_np()),
+        mus=tuple(float(m) for m in settings.mu_schedule()),
         stages=tuple(int(s) for s in stage),
         firsts=tuple(int(f) for f in first),
         n_alphas=settings.n_alphas,

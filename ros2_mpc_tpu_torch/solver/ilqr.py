@@ -84,7 +84,7 @@ class SolverSettings:
         """Low-latency profile for warm-started closed-loop ticks."""
         return cls(barrier_stages=4, iters_per_stage=3, n_alphas=6, mu_init=1e-2)
 
-    def mu_schedule_np(self) -> np.ndarray:
+    def mu_schedule(self) -> np.ndarray:
         """Per-iteration barrier parameter, float32: geometric from mu_init to
         mu_final (computed in float64, then cast), held within each stage."""
         stages = np.logspace(np.log10(self.mu_init), np.log10(self.mu_final), self.barrier_stages)
@@ -121,7 +121,7 @@ def make_solver(ocp: OCP, settings: SolverSettings = SolverSettings()):
     with ``torch.func.vmap(solve)`` for scenario batches."""
     N, n, m = ocp.horizon, ocp.n_states, ocp.n_controls
     F = ocp.transition
-    mus = [float(mu) for mu in settings.mu_schedule_np()]
+    mus = [float(mu) for mu in settings.mu_schedule()]
     alpha_list = [0.5**a for a in range(settings.n_alphas)]
 
     def solve(theta, U0):

@@ -237,6 +237,7 @@ def make_multistart_solver(
     ilqr_settings: SolverSettings = SolverSettings(),
     mppi_settings: MppiSettings | None = None,
     swing_fracs: tuple = (1.0, 0.5),
+    include_mppi: bool = True,
     *,
     engine="cuda",
     kind: str = "point_stabilization",
@@ -245,6 +246,8 @@ def make_multistart_solver(
     """Multi-start global/local solve: one iLQR bank call over each
     scenario's {warm start, MPPI answer, deterministic arc seeds}, best of by
     (converged, cost). ``solve(thetas, U0s, generator) -> Solution``.
+    ``include_mppi=False`` drops the MPPI answer: the starts are the warm
+    start and the arc seeds, and ``generator`` is not drawn from.
 
     On a symmetric saddle (an obstacle dead-center on the start-goal line)
     the gradient cannot break the tie and MPPI's exploration is far smaller
@@ -259,7 +262,8 @@ def make_multistart_solver(
     dev = resolve_device(device)
     polish = bank_engine(engine, ocp, ilqr_settings, kind=kind)
     mppi_settings = mppi_settings or MppiSettings(n_samples=128, n_iters=8)
-    mppi = make_mppi_solver(ocp, mppi_settings, device=dev)
+    mppi = make_mppi_solver(ocp, mppi_settings, device=dev) if include_mppi else None
+    n_iters = ilqr_settings.total_iters + (mppi_settings.n_iters if include_mppi else 0)
     N, m = ocp.horizon, ocp.n_controls
     seeds = arc_seeds(ocp, swing_fracs, device=dev)  # (K, N, m); raises for m < 2
     lo = torch.tensor(ocp.u_lo, dtype=_F32, device=dev)
@@ -268,7 +272,8 @@ def make_multistart_solver(
     def solve(thetas, U0s, generator):
         B = U0s.shape[0]
         warm = torch.clamp(U0s.to(_F32), lo, hi)
-        starts = torch.stack([warm, mppi(thetas, warm, generator).U], dim=1)
+        starts = [warm] if mppi is None else [warm, mppi(thetas, warm, generator).U]
+        starts = torch.stack(starts, dim=1)
         cands = torch.cat([starts, seeds[None].expand(B, *seeds.shape)], dim=1)
         S = cands.shape[1]
         # scenario-major rows: each scenario's S starts are adjacent
@@ -278,7 +283,7 @@ def make_multistart_solver(
         i = _select_best(per)
         best = _take(per, lambda f: f[i, torch.arange(B, device=i.device)])
         return best._replace(
-            n_iters=torch.full((B,), ilqr_settings.total_iters + mppi_settings.n_iters, dtype=torch.int32, device=i.device)
+            n_iters=torch.full((B,), n_iters, dtype=torch.int32, device=i.device)
         )
 
     solve.engines = (polish,)

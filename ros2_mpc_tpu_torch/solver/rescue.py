@@ -240,7 +240,10 @@ def make_multistart_two_pass_solver(
     *,
     capacity: int = 768,
     swing_fracs: tuple = (1.0,),
+    rescue_settings: Optional[SolverSettings] = None,
+    rescue_swing_fracs: Optional[tuple] = None,
     polish_iters: int = 12,
+    polish_capacity: Optional[int] = None,
     engine="cuda",
 ):
     """Basin escape x straggler rescue x KKT polish:
@@ -249,10 +252,12 @@ def make_multistart_two_pass_solver(
        scenario at ``settings``, best-of per scenario
        (:func:`~.multistart_bank.make_bank_multistart_solver`);
     2. **rescue pass**: the non-converged rows re-enter (cold + warm) on
-       :func:`rescue_schedule` with the arc seeds again,
-       ``2 * capacity * K`` engine rows;
-    3. **KKT polish**: ``polish_iters`` box-DDP steps on ``capacity`` rows,
-       :func:`~.batched.make_bank_kkt_polish`.
+       ``rescue_settings`` (``None``: :func:`rescue_schedule`) with the arc
+       seeds of ``rescue_swing_fracs`` (``None``: ``swing_fracs``),
+       ``2 * capacity * K_rescue`` engine rows, K_rescue =
+       1 + 2*len(rescue_swing_fracs);
+    3. **KKT polish**: ``polish_iters`` box-DDP steps on ``polish_capacity``
+       rows (``None``: ``capacity``), :func:`~.batched.make_bank_kkt_polish`.
 
     ``engine`` is the bank engine of both multistart passes: ``"cuda"`` (K1)
     by default, ``"fast"``, ``"vmap"``, or a callable
@@ -261,8 +266,13 @@ def make_multistart_two_pass_solver(
     from .multistart_bank import make_bank_multistart_solver
 
     first = make_bank_multistart_solver(ocp, settings, swing_fracs=swing_fracs, engine=engine)
-    rescue = make_bank_multistart_solver(ocp, rescue_schedule(), swing_fracs=swing_fracs, engine=engine)
+    rescue = make_bank_multistart_solver(
+        ocp,
+        rescue_settings or rescue_schedule(),
+        swing_fracs=rescue_swing_fracs or swing_fracs,
+        engine=engine,
+    )
     base = make_two_pass_solver(first, rescue, capacity, kkt_tol=settings.kkt_tol)
 
     polish = make_bank_kkt_polish(ocp, n_iters=polish_iters, kkt_tol=settings.kkt_tol)
-    return make_polish_stage(base, polish, capacity, kkt_tol=settings.kkt_tol)
+    return make_polish_stage(base, polish, polish_capacity or capacity, kkt_tol=settings.kkt_tol)

@@ -147,7 +147,7 @@ def test_settings_presets_match_jax():
         t = ts.SolverSettings() if name == "__call__" else getattr(ts.SolverSettings, name)()
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
         assert t.total_iters == j.total_iters
-        np.testing.assert_allclose(t.mu_schedule_np(), np.asarray(j.mu_schedule()), rtol=1e-6)
+        np.testing.assert_allclose(t.mu_schedule(), np.asarray(j.mu_schedule()), rtol=1e-6)
 
 
 def test_horizon_parallel_matches_jax():

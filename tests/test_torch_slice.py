@@ -224,9 +224,11 @@ def _imported_roots(path):
 
 
 def test_port_sources_import_nothing_of_jax():
-    """No module of the port and not chip_smoke.py imports jax or the JAX
-    package, not even lazily inside a function."""
+    """No module of the port, not chip_smoke.py and not the test modules it
+    imports (the f64 oracle and its banks) import jax or the JAX package,
+    not even lazily inside a function."""
     files = sorted((ROOT / "ros2_mpc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files += [ROOT / "tests" / "oracle.py", ROOT / "tests" / "oracle_banks.py"]
     assert len(files) >= 47
     for path in files:
         assert not _imported_roots(path) & {"jax", "jaxlib", "ros2_mpc_tpu"}, path
