@@ -29,6 +29,21 @@ runs the main path through the entry points a user calls:
   and its first 5 solves of each path must be bit-equal to the plain
   versions; then a tick with a NaN goal must neither raise nor hang.
 
+Then the conditions phase: the closed loop under the JAX suite's other
+conditions, each run with its JAX test's settings on the synthetic map
+with ``Params()`` through ``build_sim_stack``: a pillar at (0, -1) that only
+the lidar sees (``planner_map_image``) in corrected mode (point follower,
+horizon 20: reached, clearance above 0.3 m) and in parity mode (it must
+collide, the reference's outcome), the tracking follower's handoff around
+it, parity with the safety monitor (``safety_stop=0.3``: no collision in
+300 ticks), odometry, scan and actuation noise (``noise_seed=3``), a kidnap
+to (-1.6, -1.6, 0.3) after 30 ticks, a retask from (0.2, -1) to
+(1.2, -1.4), and a 0.15 m pedestrian patrolling x=0.2 (horizon 16: no wall
+hit, at least 0.3 m from it). Each run's engines count from 0 just before
+it, launch once a solve, and keep their first 5 kernel calls (K1 and K2 at
+B=1, N=16, 20 and 40) for the plain checks; its outcome and ticks must be
+the JAX package's, the ticks within 0.75-1.5x of its count.
+
 Then the deploy phase, the arguments of the JAX package's entry points
 that the port restored, run on the card. P is ``Params.load`` of the
 package's params.yaml with goal_threshold 0.25 (``Params()``: 0.2):
@@ -218,6 +233,41 @@ JAX_LOOP_TICKS = {"point": 62, "tracking": 53}
 LOOP_TICK_BAND = (0.75, 1.5)
 LOOP_RECHECK = 5  # kernel calls of each run held against the plain version
 NAN_TICK_S = 30.0  # a NaN-goal tick that takes longer has hung
+# The conditions phase: the closed loop under the JAX suite's other
+# conditions (tests/test_closed_loop.py:89-229, tests/test_safety.py:69,
+# tests/test_dynamic_obstacles.py:17), each with its JAX test's settings,
+# from (-1, -1, 0) toward (1, -1) on the synthetic map. COND_PILLAR is the
+# cell block of a pillar at world (0, -1) that only the lidar sees (the
+# planner gets the clean map). JAX_COND holds the JAX package's outcomes on
+# these runs (its build_sim_stack with Params() on a 8-core AVX-512 x86
+# CPU, one run each, ticks counted as SimStack.run_to_goal counts them):
+# the corrected pillar reached in 98 ticks, clearance 0.6105 m; parity
+# collides on tick 31; the tracking handoff reached in 133; the monitor
+# stops parity short of the pillar, no collision in 300 ticks, clearance
+# 0.364 m; the noisy run reached in 59; the kidnapped robot 80 ticks after
+# the kidnap; the retask legs in 34 and 37; the pedestrian run reached in
+# 179, min separation 0.511 m. Those counts move with the host's float32
+# arithmetic (a run on another host read 97, 93, 90, 39 and the pedestrian not
+# reached in 400 ticks, min separation 0.518 m), so the phase holds the
+# outcome, the ticks within LOOP_TICK_BAND of these where a run reaches, and
+# for the pedestrian only the wall and the separation, printing its reached
+# flag beside the JAX package's.
+COND_PILLAR = (slice(143, 147), slice(123, 127))
+COND_PILLAR_XY, COND_MIN_CLEARANCE, COND_SAFETY_STOP, COND_HALT_CLEARANCE = (0.0, -1.0), 0.3, 0.3, 0.15
+COND_NOISE = {"odom_xy": 0.01, "odom_yaw": 0.01, "scan": 0.01, "cmd": 0.05}
+COND_NOISE_SEED, COND_KIDNAP_AFTER, COND_KIDNAP_POSE = 3, 30, (-1.6, -1.6, 0.3)
+COND_RETASK = ((0.2, -1.0), (1.2, -1.4))
+COND_PED_HORIZON, COND_PED_X, COND_PED_PERIOD_S, COND_MIN_SEPARATION = 16, 0.2, 12.0, 0.3
+JAX_COND = {
+    "pillar corrected": {"ticks": 98, "clearance": 0.6105},
+    "pillar parity": {"collision tick": 31},
+    "tracking handoff": {"ticks": 133, "clearance": 0.5782},
+    "safety monitor": {"ticks": 300, "clearance": 0.364},
+    "noise": {"ticks": 59},
+    "kidnap": {"ticks": 80},
+    "retask": {"ticks": (34, 37)},
+    "pedestrian": {"ticks": 179, "reached": True, "separation": 0.511},
+}
 # The robustness composites (solver/rescue.py, multistart_bank.py,
 # batched.py) at bench.py's shapes: two-pass capacity 512 for the corrected
 # and tracking banks and the saddle composite, the saddle bank at N=40, the
@@ -658,6 +708,145 @@ def closed_loop_phase(dev, card):
             raise AssertionError(f"closed loop {follower}: a non-finite solve did not fall back to the last command")
     print(f"closed loop: A* {'native (native/astar.cpp)' if native.load() is not None else 'Python (planner/astar_py.py)'}")
     return loop_launches, checks
+
+
+def cond_drive(stack, n, stop_on_collision=True, stop_on_goal=True, watch=None, before=None):
+    """Up to ``n`` stack ticks as the JAX tests run them: stop on a
+    collision with the static map (if asked) or when the follower latches.
+    ``watch(pose)`` is minimized over the ticks, ``before(i)`` runs ahead of
+    tick i. Returns (reached, ticks, collided on any tick, min of watch)."""
+    collided, low = False, np.inf
+    for i in range(n):
+        if before is not None:
+            before(i)
+        out = stack.tick()
+        if watch is not None:
+            low = min(low, watch(out["pose"]))
+        if stack.sim.in_collision():
+            collided = True
+            if stop_on_collision:
+                return False, i + 1, True, low
+        if stop_on_goal and out["control"].get("status") == "goal_reached":
+            return True, i + 1, collided, low
+    return False, n, collided, low
+
+
+def cond_run(dev, name):
+    """One run of the conditions phase with its JAX test's settings; the
+    follower's engines count from 0 and keep their first LOOP_RECHECK calls
+    from just before it. Returns (stack, {path name: engine}, outcome)."""
+    from ros2_mpc_tpu_torch.nodes.launch import build_sim_stack
+    from ros2_mpc_tpu_torch.utils import pgm
+
+    kw = dict(follower="point", start_pose=LOOP_START, horizon=LOOP_HORIZON, device=dev)
+    if name in ("pillar corrected", "pillar parity", "tracking handoff", "safety monitor"):
+        world = pgm.synthetic_indoor_map()
+        clean = world.copy()
+        world[COND_PILLAR] = 0
+        kw.update(map_image=world, map_info=dict(pgm.DEFAULT_MAP_INFO), planner_map_image=clean)
+        kw.update(reference_parity=name in ("pillar parity", "safety monitor"))
+        if name == "tracking handoff":
+            kw["follower"] = "tracking"
+        if name == "safety monitor":
+            kw["safety_stop"] = COND_SAFETY_STOP
+    elif name == "noise":
+        kw.update(noise=COND_NOISE, noise_seed=COND_NOISE_SEED)
+    elif name == "pedestrian":
+        kw["horizon"] = COND_PED_HORIZON
+    stack = build_sim_stack(**kw)
+    f = stack.follower
+    engines = {"K1 point": f.engine} if kw["follower"] == "point" else {"K2 tracking": f.engine, "K1 handoff": f.handoff_engine}
+    keep_calls(engines.values())
+    clearance = lambda p: float(np.hypot(p[0] - COND_PILLAR_XY[0], p[1] - COND_PILLAR_XY[1]))  # noqa: E731
+    out = {}
+    if name == "retask":
+        legs = []
+        for goal in COND_RETASK:
+            stack.publish_goal(*goal)
+            legs.append(cond_drive(stack, 300, stop_on_collision=False))
+        out.update(reached=all(r for r, *_ in legs), ticks=tuple(t for _, t, *_ in legs), collided=any(c for *_, c, _ in legs))
+        out["goal distance"] = float(np.linalg.norm(stack.sim.pose[:2].cpu().numpy() - np.asarray(COND_RETASK[1])))
+        return stack, engines, out
+    stack.publish_goal(*LOOP_GOAL)
+    if name == "kidnap":
+        for _ in range(COND_KIDNAP_AFTER):
+            stack.tick()
+        stack.sim.pose = COND_KIDNAP_POSE  # float32 on the simulator's device
+        reached, ticks, collided, _ = cond_drive(stack, 400, stop_on_collision=False)
+    elif name == "noise":
+        reached, ticks, collided, _ = cond_drive(stack, 300, stop_on_collision=False)
+    elif name == "safety monitor":
+        reached, ticks, collided, low = cond_drive(stack, 300, stop_on_goal=False, watch=clearance)
+        out.update(clearance=low, blocked=stack.safety.n_blocked, halted_at=clearance(stack.sim.pose.cpu().numpy()))
+    elif name == "pedestrian":
+        tick = {"i": 0}
+
+        def ped_pos():
+            t = tick["i"] * stack.params.dt
+            return [(COND_PED_X, -1.1 + 0.35 * np.sin(2 * np.pi * t / COND_PED_PERIOD_S))]
+
+        stack.sim.moving_obstacles = ped_pos
+        separation = lambda p: float(np.hypot(p[0] - ped_pos()[0][0], p[1] - ped_pos()[0][1]))  # noqa: E731
+        reached, ticks, collided, low = cond_drive(
+            stack, 400, stop_on_collision=False, watch=separation, before=lambda i: tick.update(i=i)
+        )
+        out["separation"] = low
+    else:
+        reached, ticks, collided, low = cond_drive(stack, 400, watch=clearance)
+        out["clearance"] = low
+    out.update(reached=reached, ticks=ticks, collided=collided)
+    return stack, engines, out
+
+
+def conditions_phase(dev, card):
+    """The eight runs of the conditions phase (module docstring), each
+    held to the JAX package's outcome (JAX_COND) and to launches equal to
+    solves. Returns ({"K1": launches, "K2": launches}, plain-check entries
+    of each run's first LOOP_RECHECK kernel calls)."""
+    import torch
+
+    launches, checks = {"K1": 0, "K2": 0}, []
+    band = lambda t, ref: LOOP_TICK_BAND[0] * ref <= t <= LOOP_TICK_BAND[1] * ref  # noqa: E731
+    for name, ref in JAX_COND.items():
+        t0 = time.perf_counter()
+        stack, engines, out = cond_run(dev, name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        f = stack.follower
+        solves = len(f.telemetry.series["solve_s"])
+        sp, tp = f.telemetry.percentiles("solve_s"), stack.telemetry.percentiles("tick_s")
+        counts = {n: (e.launches, e.record.calls) for n, e in engines.items()}
+        extra = {k: round(v, 4) if isinstance(v, float) else v for k, v in out.items() if k not in ("reached", "ticks", "collided")}
+        print(
+            f"conditions {name}: reached {out['reached']}, collided {out['collided']}, ticks {out['ticks']} {extra} "
+            f"(JAX package {ref}); {solves} solves, solve p50 {sp['p50'] * 1e3:.3f} ms p99 {sp['p99'] * 1e3:.3f} ms; "
+            f"stack tick p50 {tp['p50'] * 1e3:.3f} ms (host clock); launches and solves {counts}; wall {wall:.1f} s "
+            f"-- {card}",
+            flush=True,
+        )
+        reached, ticks, collided = out["reached"], out["ticks"], out["collided"]
+        if name == "pillar parity":
+            ok = collided and not reached
+        elif name == "safety monitor":
+            ok = not collided and ticks == ref["ticks"] and out["blocked"] > 0 and out["halted_at"] > COND_HALT_CLEARANCE
+        elif name == "pedestrian":
+            ok = not collided and out["separation"] > COND_MIN_SEPARATION
+        elif name == "retask":
+            ok = reached and not collided and all(map(band, ticks, ref["ticks"]))
+            ok = ok and out["goal distance"] <= stack.params.goal_threshold + 0.1
+        else:
+            ok = reached and not collided and band(ticks, ref["ticks"])
+            if name == "pillar corrected":
+                ok = ok and out["clearance"] > COND_MIN_CLEARANCE
+        if not ok:
+            raise AssertionError(f"conditions {name}: {out}, not the JAX package's outcome {ref}")
+        if sum(c for _, c in counts.values()) != solves or any(n != c for n, c in counts.values()) or not solves:
+            raise AssertionError(f"conditions {name}: launches and solves {counts} of {solves}")
+        for n, (k, _) in counts.items():
+            launches[n[:2]] += k
+        checks += kept_checks(f"conditions {name}", engines)
+    print(f"launch counters of the conditions phase: {launches}", flush=True)
+    return launches, checks
 
 
 def composite_kernels(comp):
@@ -2069,6 +2258,11 @@ def main() -> int:
     loop_launches, loop_checks = closed_loop_phase(dev, card)
 
     lap("closed loop")
+    # ---- the closed loop under the JAX suite's other conditions; their
+    # kept kernel calls join the plain checks
+    cond_launches, cond_checks = conditions_phase(dev, card)
+    loop_checks += cond_checks
+    lap("conditions")
     # ---- the restored arguments: the oracle banks (their f64 polish beside
     # the later phases), the live graph, the home routes, the multi-robot
     # sim, include_mppi=False; their kept kernel calls join the plain checks
@@ -2335,7 +2529,7 @@ def main() -> int:
             "source": "ros2_mpc_tpu_torch/csrc/point_stab.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:119",
             "launches": launches["K1"] + loop_launches["K1"] + comp_launches["K1"] + fleet_launches["K1"]
-            + auto_launches["K1"] + scale_launches["K1"] + dist_launches + deploy_launches["K1"],
+            + auto_launches["K1"] + scale_launches["K1"] + dist_launches + deploy_launches["K1"] + cond_launches["K1"],
             "max_abs_err": max(err1, comp_err["K1"]),
             "ms": times["K1"][0],
             "plain_ms": times["K1"][1],
@@ -2349,7 +2543,7 @@ def main() -> int:
             "source": "ros2_mpc_tpu_torch/csrc/tracking.cu",
             "replaces": "ros2_mpc_tpu/solver/pallas_kernel.py:769",
             "launches": launches["K2"] + loop_launches["K2"] + comp_launches["K2"] + fleet_launches["K2"]
-            + auto_launches["K2"] + scale_launches["K2"] + deploy_launches["K2"],
+            + auto_launches["K2"] + scale_launches["K2"] + deploy_launches["K2"] + cond_launches["K2"],
             "max_abs_err": max(err2, comp_err["K2"]),
             "ms": times["K2"][0],
             "plain_ms": times["K2"][1],

@@ -99,7 +99,7 @@ class Simulator:
         self.occupied = torch.as_tensor(self.map_image == 0, device=dev)
         self.origin = torch.tensor(np.asarray(map_info["origin"][:2], dtype=np.float32), device=dev)
         self.resolution = float(map_info["resolution"])
-        self.pose = torch.tensor(np.asarray(start_pose, dtype=np.float32), device=dev)
+        self.pose = np.asarray(start_pose, dtype=np.float32)
         self.cmd = np.zeros(2)
         self.n_beams = n_beams
         self.max_range = max_range
@@ -115,6 +115,18 @@ class Simulator:
         self.publish_map()
         self.publish_state()
         self.publish_scan()
+
+    @property
+    def pose(self) -> torch.Tensor:
+        """The true pose (x, y, yaw), float32 on the simulator's device."""
+        return self._pose
+
+    @pose.setter
+    def pose(self, value):
+        # a pose written from outside (a kidnap, a relocalization) may be a
+        # list, a float64 array or a host tensor: it becomes float32 on the
+        # device, as a jnp array is float32 in the JAX package
+        self._pose = torch.as_tensor(value, dtype=_F32, device=self.device)
 
     def _cmd_callback(self, msg: Twist):
         self.cmd = np.array([msg.linear_x, msg.angular_z])

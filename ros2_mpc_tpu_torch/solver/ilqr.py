@@ -157,8 +157,8 @@ def make_solver(ocp: OCP, settings: SolverSettings = SolverSettings()):
 
         def stage_derivs(x, u, k, mu):
             # forward-mode tangents can come back float64 (a product of
-            # tangents scaled by a Python float, e.g. the bicycle's
-            # v * tan(delta) / L): cast them to the state's dtype
+            # 0-dim tangents scaled by a Python float, as in the quadrotor's
+            # dynamics): cast them to the state's dtype
             A = jacfwd(lambda xx: F(xx, u))(x).to(x.dtype)
             B = jacfwd(lambda uu: F(x, uu))(u).to(x.dtype)
 
