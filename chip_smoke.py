@@ -55,7 +55,10 @@ package's params.yaml with goal_threshold 0.25 (``Params()``: 0.2):
   scenarios x 4 ticks; terminal-weight tracking, seed 13, 16) through K1
   and K2, and the quadrotor's 16 scenarios (seed 11) through the generic
   engine, polished in two worker processes beside the later phases and
-  judged by that file's rules;
+  judged by that file's rules; then the quadrotor's ``make_solver`` on the
+  first of those scenarios, a short schedule: its ``Solution`` and its
+  transition's Jacobians ``A`` and ``B`` must be float32 (``make_solver``
+  casts no derivative);
 * ``build_live_stack(params=P, map_image=, map_info=, start_pose=,
   global_costmap=True, viz_period=)`` on ``maps/map_home.pgm`` (314 x 224
   cells), from (-2.6, -3.4, 0) to (2.4, -3.4) under a 45 s budget: P in
@@ -196,6 +199,7 @@ from __future__ import annotations
 
 import json
 import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -205,6 +209,7 @@ from types import SimpleNamespace
 
 import numpy as np
 
+STARTED = time.monotonic()  # the phase lines say how far into the script each ends
 B = 4096  # bank size of the headline cell
 N = 20  # horizon of the bank cells
 
@@ -382,6 +387,13 @@ INCLUDE_MPPI_ROWS = 512
 # quadrotor's 16 scenarios (the generic engine; the CPU test keeps 4),
 # polished in ORACLE_WORKERS processes beside the later phases.
 ORACLE_WORKERS, ORACLE_TIMEOUT_S = 2, 600.0
+# Their verdicts are read only after the plain versions, so the polish runs
+# at a lower priority and yields the host's cores to the phases that drive
+# the card (the quadrotor's takes 200-300 s of one core)
+ORACLE_NICE = 10
+# The quadrotor's make_solver on the oracle's first scenario: two iterations
+# of four step sizes, enough to run every derivative make_solver takes
+QUAD_F32_SCHEDULE = dict(barrier_stages=1, iters_per_stage=2, n_alphas=4)
 
 
 def headline_bank(rng, B):
@@ -1642,13 +1654,51 @@ def deploy_params(tmp):
     return P
 
 
+def oracle_worker():
+    """The oracle workers' initializer: a lower priority (``ORACLE_NICE``)."""
+    os.nice(ORACLE_NICE)
+
+
 def oracle_check(name, cases, U, converged):
     """``oracle_banks.check_family`` in a worker beside the card (raises
-    under the JAX file's rule). Returns (worst drift, seconds)."""
+    under the JAX file's rule). Returns (worst drift, seconds, the monotonic
+    clock at the end)."""
     import oracle_banks
 
     t0 = time.perf_counter()
-    return oracle_banks.check_family(name, cases, U, converged), time.perf_counter() - t0
+    worst = oracle_banks.check_family(name, cases, U, converged)
+    return worst, time.perf_counter() - t0, time.monotonic()
+
+
+def quadrotor_float32(dev, card, oracle_banks):
+    """The quadrotor's ``make_solver`` on the card on the oracle's first
+    scenario: the Solution and the transition's Jacobians at the start must
+    be float32, with no cast in ``make_solver`` to hide a float64 tangent."""
+    import torch
+    from torch.func import jacfwd
+
+    from ros2_mpc_tpu_torch.solver import SolverSettings, make_solver
+
+    q = oracle_banks.family_bank("quadrotor", dev, count=1)
+    ocp = q["problem"].ocp
+    theta, U0 = {k: v[0] for k, v in q["thetas"].items()}, q["U0s"][0]
+    t0 = time.perf_counter()
+    sol = make_solver(ocp, SolverSettings(**QUAD_F32_SCHEDULE))(theta, U0)
+    A, B = jacfwd(ocp.transition, argnums=(0, 1))(theta["x0"], U0[0])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dtypes = {k: getattr(sol, k).dtype for k in ("U", "X", "cost", "kkt_residual", "reg")} | {"A": A.dtype, "B": B.dtype}
+    print(
+        f"deploy quadrotor make_solver float32 (oracle scenario 0, seed {oracle_banks.FAMILIES['quadrotor'][0]}, "
+        f"N={oracle_banks.N}, {QUAD_F32_SCHEDULE}): "
+        + ", ".join(f"{k} {str(v).removeprefix('torch.')}" for k, v in dtypes.items())
+        + f"; cost {float(sol.cost):.6f}, kkt {float(sol.kkt_residual):.3e}, {secs:.2f} s (host clock) -- {card}",
+        flush=True,
+    )
+    if any(v != torch.float32 for v in dtypes.values()):
+        raise AssertionError(f"quadrotor make_solver: not float32: {dtypes}")
+    if not bool(torch.isfinite(sol.U).all()) or not bool(torch.isfinite(A).all() & torch.isfinite(B).all()):
+        raise AssertionError("quadrotor make_solver: non-finite controls or Jacobians")
 
 
 def deploy_phase(dev, card, inp):
@@ -1676,7 +1726,7 @@ def deploy_phase(dev, card, inp):
     launches, checks = {"K1": 0, "K2": 0}, []
     # ---- the oracle banks on the card, polished beside the later phases
     # (the quadrotor's 16 first: its polish is the longest)
-    pool = multiprocessing.get_context("spawn").Pool(ORACLE_WORKERS)  # terminated by collect or at exit
+    pool = multiprocessing.get_context("spawn").Pool(ORACLE_WORKERS, oracle_worker)  # terminated by collect or at exit
     families = ("quadrotor", "obstacles", "point_stab", "tracking", "terminal_tracking", "warm_realtime")
     pending = {}
     for name in families:
@@ -1700,6 +1750,7 @@ def deploy_phase(dev, card, inp):
         if on_kernel:
             launches["K1" if solver.kind == "point_stab" else "K2"] += solver.launches
             checks += kept_checks(f"deploy oracle {name}", {"bank": solver})
+    quadrotor_float32(dev, card, oracle_banks)
 
     with tempfile.TemporaryDirectory() as tmp:
         P = deploy_params(tmp)
@@ -1838,11 +1889,12 @@ def deploy_phase(dev, card, inp):
         deadline = time.perf_counter() + ORACLE_TIMEOUT_S
         try:
             for name in families:
-                worst, secs = pending[name].get(timeout=max(1.0, deadline - time.perf_counter()))
+                worst, secs, ended = pending[name].get(timeout=max(1.0, deadline - time.perf_counter()))
                 band = {"obstacles": "2e-3", "quadrotor": "5e-3 of the box width for 0.9 of them, 2e-2 for all"}
                 print(
                     f"deploy oracle {name}: the kernels' outputs within the f64 oracle's band, worst drift "
-                    f"{worst:.3e} (band {band.get(name, '1e-3')}; polished in {secs:.1f} s in its worker)",
+                    f"{worst:.3e} (band {band.get(name, '1e-3')}; polished in {secs:.1f} s in its worker, "
+                    f"ending {ended - STARTED:.1f} s into the script)",
                     flush=True,
                 )
         finally:
@@ -2159,9 +2211,11 @@ def main() -> int:
     clock = [time.perf_counter()]
 
     def lap(name):
-        """Print the wall time since the last lap: where the script's time goes."""
+        """Print the wall time since the last lap and since the script
+        started: where the script's time goes."""
         now = time.perf_counter()
-        print(f"phase {name}: {now - clock[0]:.1f} s", flush=True)
+        into = time.monotonic() - STARTED
+        print(f"phase {name}: {now - clock[0]:.1f} s (ending {into:.1f} s into the script)", flush=True)
         clock[0] = now
 
     # ---- 1. the card and the build

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import device_constant
 from ..ops.grid import reciprocal_f32
 
 N_STATES = 3
@@ -29,14 +30,15 @@ def make_f(wheelbase: float = 0.3):
     float32 tensor, not a Python float: a Python float against a product of
     0-dim tensors makes ``torch.func.jacfwd``'s tangents float64, and the
     transition's Jacobian ``B`` then leaves the float32 arithmetic of the
-    JAX package."""
-    inv_wheelbase = reciprocal_f32(wheelbase)
+    JAX package. It is copied to the device once (``device_constant``): a
+    new tensor on every call would block the host on each transition."""
+    inv_wheelbase = device_constant(reciprocal_f32(wheelbase))
 
     def f(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         theta = x[..., 2]
         v = u[..., 0]
         delta = u[..., 1]
-        inv = torch.tensor(inv_wheelbase, dtype=x.dtype, device=x.device)
+        inv = inv_wheelbase(x.device, x.dtype)
         return torch.stack([v * torch.cos(theta), v * torch.sin(theta), v * torch.tan(delta) * inv], dim=-1)
 
     return f

@@ -19,6 +19,9 @@ from __future__ import annotations
 
 import torch
 
+from ..device import device_constant
+from ..ops.grid import reciprocal_f32
+
 N_STATES = 12
 N_CONTROLS = 4
 GRAVITY = 9.81
@@ -29,10 +32,20 @@ def make_f(
     inertia: tuple = (2.3e-3, 2.3e-3, 4.0e-3),
     g: float = GRAVITY,
 ):
-    """Continuous-time dynamics ``f(x, u) -> xdot`` (diagonal inertia [kg m^2])."""
+    """Continuous-time dynamics ``f(x, u) -> xdot`` (diagonal inertia [kg m^2]).
+
+    XLA divides by the constant mass and inertias as products with their
+    float32 reciprocals, so the port multiplies by those reciprocals too
+    (``models/bicycle.py`` explains why). The constants are tensors copied
+    to the device once (``device_constant``), not Python floats, which would
+    make ``torch.func.jacfwd``'s tangents float64."""
     Jx, Jy, Jz = inertia
+    consts = device_constant(
+        (reciprocal_f32(mass), g, Jz - Jy, Jx - Jz, Jy - Jx, reciprocal_f32(Jx), reciprocal_f32(Jy), reciprocal_f32(Jz))
+    )
 
     def f(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        inv_m, g_, dzy, dxz, dyx, inv_jx, inv_jy, inv_jz = consts(x.device, x.dtype)
         v = x[..., 3:6]
         phi, th, psi = x[..., 6], x[..., 7], x[..., 8]
         wx, wy, wz = x[..., 9], x[..., 10], x[..., 11]
@@ -47,8 +60,8 @@ def make_f(
         ez_x = cpsi * sth * cphi + spsi * sphi
         ez_y = spsi * sth * cphi - cpsi * sphi
         ez_z = cth * cphi
-        a = T / mass
-        vdot = torch.stack([a * ez_x, a * ez_y, a * ez_z - g], dim=-1)
+        a = T * inv_m
+        vdot = torch.stack([a * ez_x, a * ez_y, a * ez_z - g_], dim=-1)
 
         # Euler-rate kinematics (ZYX)
         tth = sth / cth
@@ -57,9 +70,9 @@ def make_f(
         psidot = (sphi * wy + cphi * wz) / cth
 
         # rigid-body rotation with diagonal inertia
-        wxdot = (tx - (Jz - Jy) * wy * wz) / Jx
-        wydot = (ty - (Jx - Jz) * wz * wx) / Jy
-        wzdot = (tz - (Jy - Jx) * wx * wy) / Jz
+        wxdot = (tx - dzy * wy * wz) * inv_jx
+        wydot = (ty - dxz * wz * wx) * inv_jy
+        wzdot = (tz - dyx * wx * wy) * inv_jz
 
         return torch.cat(
             [

@@ -156,23 +156,20 @@ def make_solver(ocp: OCP, settings: SolverSettings = SolverSettings()):
             return acc + ocp.terminal_cost(x, theta)
 
         def stage_derivs(x, u, k, mu):
-            # forward-mode tangents can come back float64 (a product of
-            # 0-dim tangents scaled by a Python float, as in the quadrotor's
-            # dynamics): cast them to the state's dtype
-            A = jacfwd(lambda xx: F(xx, u))(x).to(x.dtype)
-            B = jacfwd(lambda uu: F(x, uu))(u).to(x.dtype)
+            A = jacfwd(lambda xx: F(xx, u))(x)
+            B = jacfwd(lambda uu: F(x, uu))(u)
 
             def lz(z):
                 return stage_cost_mu(z[:n], z[n:], k, mu)
 
             z = torch.cat([x, u])
             g = grad(lz)(z)
-            H = hessian(lz)(z).to(z.dtype)
+            H = hessian(lz)(z)
             return A, B, g[:n], g[n:], H[:n, :n], H[n:, :n], H[n:, n:]
 
         def backward_pass(X, U, mu, reg):
             Vx = grad(lambda x: ocp.terminal_cost(x, theta))(X[-1])
-            Vxx = hessian(lambda x: ocp.terminal_cost(x, theta))(X[-1]).to(X.dtype)
+            Vxx = hessian(lambda x: ocp.terminal_cost(x, theta))(X[-1])
             dV1, dV2 = 0.0, 0.0
             kffs, Ks = [None] * N, [None] * N
             for k in reversed(range(N)):
@@ -206,7 +203,7 @@ def make_solver(ocp: OCP, settings: SolverSettings = SolverSettings()):
             d = [stage_derivs(X[k], U[k], k, mu) for k in range(N)]
             A, B, lx, lu, lxx, lux, luu = (torch.stack(z) for z in zip(*d))
             luu_reg = luu + reg * eye
-            P_N = hessian(lambda x: ocp.terminal_cost(x, theta))(X[-1]).to(X.dtype)
+            P_N = hessian(lambda x: ocp.terminal_cost(x, theta))(X[-1])
             p_N = grad(lambda x: ocp.terminal_cost(x, theta))(X[-1])
             gains = lqr_backward_parallel(
                 LQRProblem(A=A, B=B, lxx=lxx, lux=lux, luu=luu_reg, lx=lx, lu=lu, P_N=P_N, p_N=p_N)
