@@ -22,6 +22,14 @@ on its slot's device and interleave them tick by tick (:func:`_lockstep`);
 the swarm gathers every shard's positions and velocities each tick
 (:func:`~ros2_mpc_tpu_torch.parallel.mesh.gather_rows`).
 
+Under a profiler each tick of a goal or tracking loop is the span
+``fleet.tick``, enclosing ``fleet.window`` (the tracking windows and
+handoff gains), ``fleet.solve`` (the bank call) and ``fleet.plant`` (latch,
+first control, plant, warm shift, cross-track sums); a tick's span closes
+before the loop yields, so the spans of interleaved shards never cross. A
+tracking rollout is ``fleet.rollout``, its closing statistics
+``fleet.summary``.
+
 Engines: ``"cuda"`` (K1 for point stabilization, K2 for tracking, through
 :mod:`~ros2_mpc_tpu_torch.solver.cuda_kernel`: the kernel on CUDA tensors,
 its plain version on CPU tensors), ``"fast"``
@@ -52,6 +60,7 @@ from ..models import unicycle
 from ..ops.integrators import rk4_step
 from ..solver.multistart_bank import bank_engine
 from ..solver.warmstart import shift_controls
+from ..utils.telemetry import span
 from .mesh import Sharded, gather_rows, reduce_parts, shard_bank
 
 _F32 = torch.float32
@@ -150,13 +159,16 @@ def _goal_loop(solve_bank, plant, n_ticks, record, thetas, U0s):
     xs, warm = thetas["x0"], U0s
     traj = [xs] if record else None
     for _ in range(n_ticks):
-        th = dict(thetas)
-        th["x0"] = xs
-        sols = solve_bank(th, warm)
-        xs = plant(xs, _first_control(sols))
-        warm = _shift(sols.U)
-        if record:
-            traj.append(xs)
+        with span("fleet.tick"):
+            th = dict(thetas)
+            th["x0"] = xs
+            with span("fleet.solve"):
+                sols = solve_bank(th, warm)
+            with span("fleet.plant"):
+                xs = plant(xs, _first_control(sols))
+                warm = _shift(sols.U)
+                if record:
+                    traj.append(xs)
         yield
     return xs, traj
 
@@ -323,17 +335,19 @@ def make_tracking_fleet_rollout(
     loop = _tracking_loop_factory(problem, n_ticks, dt, record, engine, handoff_radius, (dev,))
 
     def rollout(thetas, paths, U0s):
-        thetas, paths, U0s = _on(thetas, dev), _on(paths, dev), U0s.to(dev)
-        ((xs, goals, ct_sum, ct_max, traj),) = _lockstep([loop(thetas, paths, U0s)])
-        goal_dist = torch.linalg.vector_norm(xs[:, :2] - goals[:, :2], dim=-1)
-        return TrackingFleetResult(
-            final_states=xs,
-            goal_dist=goal_dist,
-            reach_fraction=(goal_dist < goal_threshold).to(_F32).mean(),
-            mean_cross_track=(ct_sum / n_ticks).mean(),
-            max_cross_track=ct_max.max(),
-            trajectories=torch.stack(traj) if record else None,
-        )
+        with span("fleet.rollout"):
+            thetas, paths, U0s = _on(thetas, dev), _on(paths, dev), U0s.to(dev)
+            ((xs, goals, ct_sum, ct_max, traj),) = _lockstep([loop(thetas, paths, U0s)])
+            with span("fleet.summary"):
+                goal_dist = torch.linalg.vector_norm(xs[:, :2] - goals[:, :2], dim=-1)
+                return TrackingFleetResult(
+                    final_states=xs,
+                    goal_dist=goal_dist,
+                    reach_fraction=(goal_dist < goal_threshold).to(_F32).mean(),
+                    mean_cross_track=(ct_sum / n_ticks).mean(),
+                    max_cross_track=ct_max.max(),
+                    trajectories=torch.stack(traj) if record else None,
+                )
 
     rollout.engines = loop.engines
     return rollout
@@ -378,23 +392,27 @@ def _tracking_loop_factory(problem, n_ticks, dt, record, engine, handoff_radius,
         ct_max = torch.zeros(B, dtype=_F32, device=dev)
         traj = [xs] if record else None
         for _ in range(n_ticks):
-            x_ref, u_ref, ct = _tracking_window(xs[:, :2], goals, wps, yaw, speed, omega, N)
-            th = dict(thetas)
-            th["x0"], th["x_ref"], th["u_ref"] = xs, x_ref, u_ref
-            to_goal = ((xs[:, :2] - goals[:, :2]) ** 2).sum(-1)
-            if handoff_radius is not None:
-                near = (to_goal < handoff_radius**2)[:, None]
-                th["Q"] = torch.where(near, hq, thetas["Q"])
-                th["terminal_weight"] = torch.where(near, htw, thetas["terminal_weight"])
-            sols = solve_bank(th, warm)
-            latched = latched | (to_goal < LATCH_RADIUS**2)
-            u0 = torch.where(latched[:, None], 0.0, _first_control(sols))
-            xs = plant(xs, u0)
-            warm = _shift(sols.U)
-            ct_sum = ct_sum + ct
-            ct_max = torch.maximum(ct_max, ct)
-            if record:
-                traj.append(xs)
+            with span("fleet.tick"):
+                with span("fleet.window"):
+                    x_ref, u_ref, ct = _tracking_window(xs[:, :2], goals, wps, yaw, speed, omega, N)
+                    th = dict(thetas)
+                    th["x0"], th["x_ref"], th["u_ref"] = xs, x_ref, u_ref
+                    to_goal = ((xs[:, :2] - goals[:, :2]) ** 2).sum(-1)
+                    if handoff_radius is not None:
+                        near = (to_goal < handoff_radius**2)[:, None]
+                        th["Q"] = torch.where(near, hq, thetas["Q"])
+                        th["terminal_weight"] = torch.where(near, htw, thetas["terminal_weight"])
+                with span("fleet.solve"):
+                    sols = solve_bank(th, warm)
+                with span("fleet.plant"):
+                    latched = latched | (to_goal < LATCH_RADIUS**2)
+                    u0 = torch.where(latched[:, None], 0.0, _first_control(sols))
+                    xs = plant(xs, u0)
+                    warm = _shift(sols.U)
+                    ct_sum = ct_sum + ct
+                    ct_max = torch.maximum(ct_max, ct)
+                    if record:
+                        traj.append(xs)
             yield
         return xs, goals, ct_sum, ct_max, traj
 
@@ -422,19 +440,21 @@ def make_sharded_tracking_fleet_rollout(
     loop = _tracking_loop_factory(problem, n_ticks, dt, record, engine, handoff_radius, mesh.devices)
 
     def rollout(thetas, paths, U0s):
-        th, P, U = shard_bank(thetas, mesh), shard_bank(paths, mesh), shard_bank(U0s, mesh)
-        outs = _lockstep([loop(t, p, u) for t, p, u in zip(th.shards, P.shards, U.shards)])
-        xs, goals, ct_sum, ct_max, trajs = zip(*outs)
-        goal_dist = [torch.linalg.vector_norm(x[:, :2] - g[:, :2], dim=-1) for x, g in zip(xs, goals)]
-        n = xs[0].shape[0] * mesh.size
-        return TrackingFleetResult(
-            final_states=Sharded(tuple(xs), mesh),
-            goal_dist=Sharded(tuple(goal_dist), mesh),
-            reach_fraction=reduce_parts(mesh, [(d < goal_threshold).to(_F32).sum() for d in goal_dist], "sum") / n,
-            mean_cross_track=reduce_parts(mesh, [(c / n_ticks).sum() for c in ct_sum], "sum") / n,
-            max_cross_track=reduce_parts(mesh, [c.max() for c in ct_max], "max"),
-            trajectories=Sharded(tuple(torch.stack(t) for t in trajs), mesh, dim=1) if record else None,
-        )
+        with span("fleet.rollout"):
+            th, P, U = shard_bank(thetas, mesh), shard_bank(paths, mesh), shard_bank(U0s, mesh)
+            outs = _lockstep([loop(t, p, u) for t, p, u in zip(th.shards, P.shards, U.shards)])
+            xs, goals, ct_sum, ct_max, trajs = zip(*outs)
+            with span("fleet.summary"):
+                goal_dist = [torch.linalg.vector_norm(x[:, :2] - g[:, :2], dim=-1) for x, g in zip(xs, goals)]
+                n = xs[0].shape[0] * mesh.size
+                return TrackingFleetResult(
+                    final_states=Sharded(tuple(xs), mesh),
+                    goal_dist=Sharded(tuple(goal_dist), mesh),
+                    reach_fraction=reduce_parts(mesh, [(d < goal_threshold).to(_F32).sum() for d in goal_dist], "sum") / n,
+                    mean_cross_track=reduce_parts(mesh, [(c / n_ticks).sum() for c in ct_sum], "sum") / n,
+                    max_cross_track=reduce_parts(mesh, [c.max() for c in ct_max], "max"),
+                    trajectories=Sharded(tuple(torch.stack(t) for t in trajs), mesh, dim=1) if record else None,
+                )
 
     rollout.engines = loop.engines
     return rollout

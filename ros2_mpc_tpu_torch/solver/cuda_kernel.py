@@ -42,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.telemetry import span
 from .ilqr import OCP, Solution, SolverSettings
 
 # Each kernel's lanes per scenario and scenarios per block, compile-time
@@ -637,6 +638,10 @@ class CudaBankSolver:
     caller sets ``record`` to a list, each kernel call appends its
     ``(thetas, U0s, result)`` there, so every launch inside a composite can
     be held against :meth:`plain` on the inputs it was given.
+
+    Under a profiler a call is the span ``bank.call``, enclosing
+    ``bank.pack`` (:meth:`_pack`), ``bank.launch`` (:meth:`_launch`; on
+    the CPU ``bank.plain``) and ``bank.finish`` (:meth:`_finish`).
     """
 
     def __init__(self, kind: str, cfg: BankConfig, with_counters: bool):
@@ -750,16 +755,24 @@ class CudaBankSolver:
         return sol
 
     def __call__(self, thetas, U0s):
-        planes = self._pack(thetas, U0s)
-        dev = planes[0].device
-        if dev.type == "cpu":
-            return self._finish(self._plain(planes))
-        if dev.type == "cuda":
-            out = self._finish(self._launch(planes))
-            if self.record is not None:
-                self.record.append((thetas, U0s, out))
-            return out
-        raise ValueError(f"no bank solver for device {dev}")
+        with span("bank.call"):
+            with span("bank.pack"):
+                planes = self._pack(thetas, U0s)
+            dev = planes[0].device
+            if dev.type == "cpu":
+                with span("bank.plain"):
+                    out = self._plain(planes)
+            elif dev.type == "cuda":
+                with span("bank.launch"):
+                    out = self._launch(planes)
+            else:
+                raise ValueError(f"no bank solver for device {dev}")
+            with span("bank.finish"):
+                out = self._finish(out)
+        # a caller's recorder runs outside the call's span
+        if self.record is not None and dev.type == "cuda":
+            self.record.append((thetas, U0s, out))
+        return out
 
     def plain(self, thetas, U0s):
         """The plain PyTorch version on any device: the kernel's yardstick."""

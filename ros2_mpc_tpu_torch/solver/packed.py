@@ -9,6 +9,10 @@ Layout (point stabilization, n = n_obstacle_points):
     [x0(3) | goal(3) | obs_x(n) | obs_y(n)]
 Layout (tracking, horizon N):
     [x0(3) | x_ref(N*3) | u_ref(N*2) | obs_x(n) | obs_y(n)]
+
+Under a profiler a tick's three steps are the spans ``tick.pack`` (the host
+encode and the one transfer), ``tick.solve`` and ``tick.read`` (the one
+read back).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import Params
+from ..utils.telemetry import span
 from .problems import Problem
 from .warmstart import shift_controls
 
@@ -41,24 +46,26 @@ def make_packed_point_stab(problem: Problem, params: Params = Params(), solve_fn
     solve = solve_fn if solve_fn is not None else problem.solve
 
     def solve_packed(vec, U0, *extra):
-        theta = dict(const)
-        theta["x0"] = vec[0:3]
-        theta["goal"] = vec[3:6]
-        theta["obs_x"] = vec[6 : 6 + n]
-        theta["obs_y"] = vec[6 + n : 6 + 2 * n]
-        sol = solve(theta, U0, *extra)
-        return sol, shift_controls(sol.U)
+        with span("tick.solve"):
+            theta = dict(const)
+            theta["x0"] = vec[0:3]
+            theta["goal"] = vec[3:6]
+            theta["obs_x"] = vec[6 : 6 + n]
+            theta["obs_y"] = vec[6 + n : 6 + 2 * n]
+            sol = solve(theta, U0, *extra)
+            return sol, shift_controls(sol.U)
 
     def pack(x0, goal, obs_x, obs_y) -> torch.Tensor:
-        vec = np.concatenate(
-            [
-                np.asarray(x0, dtype=np.float32).reshape(3),
-                np.asarray(goal, dtype=np.float32).reshape(3),
-                np.asarray(obs_x, dtype=np.float32).reshape(n),
-                np.asarray(obs_y, dtype=np.float32).reshape(n),
-            ]
-        )
-        return _to_device(vec, const["x0"])
+        with span("tick.pack"):
+            vec = np.concatenate(
+                [
+                    np.asarray(x0, dtype=np.float32).reshape(3),
+                    np.asarray(goal, dtype=np.float32).reshape(3),
+                    np.asarray(obs_x, dtype=np.float32).reshape(n),
+                    np.asarray(obs_y, dtype=np.float32).reshape(n),
+                ]
+            )
+            return _to_device(vec, const["x0"])
 
     return solve_packed, pack
 
@@ -72,26 +79,28 @@ def make_packed_tracking(problem: Problem, params: Params = Params(), solve_fn=N
     solve = solve_fn if solve_fn is not None else problem.solve
 
     def solve_packed(vec, U0, *extra):
-        theta = dict(const)
-        theta["x0"] = vec[0:3]
-        theta["x_ref"] = vec[3 : 3 + 3 * N].reshape(N, 3)
-        theta["u_ref"] = vec[3 + 3 * N : 3 + 5 * N].reshape(N, 2)
-        theta["obs_x"] = vec[3 + 5 * N : 3 + 5 * N + n]
-        theta["obs_y"] = vec[3 + 5 * N + n : 3 + 5 * N + 2 * n]
-        sol = solve(theta, U0, *extra)
-        return sol, shift_controls(sol.U)
+        with span("tick.solve"):
+            theta = dict(const)
+            theta["x0"] = vec[0:3]
+            theta["x_ref"] = vec[3 : 3 + 3 * N].reshape(N, 3)
+            theta["u_ref"] = vec[3 + 3 * N : 3 + 5 * N].reshape(N, 2)
+            theta["obs_x"] = vec[3 + 5 * N : 3 + 5 * N + n]
+            theta["obs_y"] = vec[3 + 5 * N + n : 3 + 5 * N + 2 * n]
+            sol = solve(theta, U0, *extra)
+            return sol, shift_controls(sol.U)
 
     def pack(x0, x_ref, u_ref, obs_x, obs_y) -> torch.Tensor:
-        vec = np.concatenate(
-            [
-                np.asarray(x0, dtype=np.float32).reshape(3),
-                np.asarray(x_ref, dtype=np.float32).reshape(3 * N),
-                np.asarray(u_ref, dtype=np.float32).reshape(2 * N),
-                np.asarray(obs_x, dtype=np.float32).reshape(n),
-                np.asarray(obs_y, dtype=np.float32).reshape(n),
-            ]
-        )
-        return _to_device(vec, const["x0"])
+        with span("tick.pack"):
+            vec = np.concatenate(
+                [
+                    np.asarray(x0, dtype=np.float32).reshape(3),
+                    np.asarray(x_ref, dtype=np.float32).reshape(3 * N),
+                    np.asarray(u_ref, dtype=np.float32).reshape(2 * N),
+                    np.asarray(obs_x, dtype=np.float32).reshape(n),
+                    np.asarray(obs_y, dtype=np.float32).reshape(n),
+                ]
+            )
+            return _to_device(vec, const["x0"])
 
     return solve_packed, pack
 
@@ -100,9 +109,10 @@ def read_tick(sol):
     """A tick's one read from the device: ``(u0, cost, kkt_residual,
     converged)`` of a single-scenario Solution, with ``u0 = U[0]`` as a
     NumPy (2,) array, in one transfer."""
-    f = sol.cost.dtype
-    head = torch.cat([sol.U[0], torch.stack([sol.cost, sol.kkt_residual, sol.converged.to(f)])])
-    v = head.cpu().numpy()
+    with span("tick.read"):
+        f = sol.cost.dtype
+        head = torch.cat([sol.U[0], torch.stack([sol.cost, sol.kkt_residual, sol.converged.to(f)])])
+        v = head.cpu().numpy()
     return v[:2], float(v[2]), float(v[3]), bool(v[4])
 
 

@@ -3,7 +3,8 @@
 Port of :mod:`ros2_mpc_tpu.utils.telemetry`: every control loop records
 structured per-tick metrics (solve latency, KKT residual, cost,
 convergence) with p50/p99 summaries, plus an optional ``torch.profiler``
-trace of the card.
+trace of the card, in which the port's layers mark their work with
+:func:`span`.
 """
 
 from __future__ import annotations
@@ -15,9 +16,23 @@ from collections import defaultdict
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..device import resolve_device
+
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A named span of the port's work on the profiler's clock: while a
+    ``torch.profiler`` records, ``record_function(name)``, which the trace
+    keeps beside the device activity the span issues; otherwise one shared
+    null context, which costs a flag read. Spans nest by containment on the
+    host thread that opens them."""
+    if _profiling():
+        return record_function(name)
+    return _NO_SPAN
 
 
 class Telemetry:
@@ -64,7 +79,15 @@ def profile_trace(logdir: str, device=None):
     card (``device=None``), CUDA activity. On exit the trace is written to
     ``logdir/trace.json`` (Chrome trace format; open in Perfetto or
     ``chrome://tracing``). Yields the profiler, whose ``key_averages()``
-    sums the time by op and kernel."""
+    sums the time by op and kernel.
+
+    Around a follower's tick, a bank solve or a fleet rollout the trace
+    shows the port's spans (:func:`span`) above the device's timeline: a
+    bank call ``bank.call`` with ``bank.pack``, ``bank.launch`` (the kernel;
+    ``bank.plain`` on the CPU) and ``bank.finish``; a fleet's
+    ``fleet.rollout`` with a ``fleet.tick`` a tick (``fleet.window``,
+    ``fleet.solve``, ``fleet.plant``) and ``fleet.summary``; the packed
+    tick's ``tick.pack``, ``tick.solve`` and ``tick.read``."""
     dev = resolve_device(device)
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
