@@ -2455,7 +2455,7 @@ def main() -> int:
         if not torch.equal(sol.U, ref.U):  # the counters change no arithmetic
             raise AssertionError(f"{name}: the counted solve differs from the main path's")
         # the schedule's executed iterations and first-accept candidates,
-        # whatever the lanes ran speculatively
+        # which the kernels' line search costs one cost pass each
         unequal = [k for k in ("iters", "ls_rollouts") if not torch.equal(cnt[k], plain[name][1][k])]
         print(f"{name} counters: iters and ls_rollouts equal to the plain version's {unequal or 'yes'}")
         if unequal:
@@ -2503,8 +2503,8 @@ def main() -> int:
             f"ms, bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), share of bound {share:.4f}; "
             f"vpu_model_utilization {rep['vpu_model_utilization']:.4f} (peak-rate model), "
             f"{util_instr:.4f} (arith one instruction per op); "
-            # the lanes run speculative candidates and redundant sweeps, so a
-            # recount of one thread per scenario says nothing about them
+            # the lanes run the candidates' state passes and redundant sweeps,
+            # so a recount of one thread per scenario says nothing about them
             "divergence and loop overhead: not modelled for a lane group per scenario"
         )
         if ledger is rl.point_stab_solve_flops:

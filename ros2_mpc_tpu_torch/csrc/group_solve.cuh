@@ -12,10 +12,14 @@
 //    per lane; the cost is then summed in k order from 0.f, as the plain
 //    rollout's `J = J + ...` does, never as a tree, and the terminal cost
 //    is added last;
-//  * the line search: lane a rolls out the candidate alpha = 2^-(r*G + a)
-//    in round r. Each candidate depends only on U, X, kff, kfb and its own
-//    alpha, never on a rejected one, so the lowest passing index is what
-//    the first-accept search accepts. Rounds run while no candidate passed.
+//  * the line search, in rounds of G step sizes and two passes. The state
+//    pass: lane a rolls out the controls and states of the candidate
+//    alpha = 2^-(r*G + a) in round r, without its cost. Each candidate
+//    depends only on U, X, kff, kfb and its own alpha, never on a rejected
+//    one. The cost passes then take the round's candidates in first-accept
+//    order: a candidate's stage terms one stage per lane, summed in k order
+//    as the iterate's cost is, and the Armijo test. The search stops at the
+//    first candidate that passes; the next round starts only if none did.
 //
 // The Riccati sweep and the adjoint KKT sweep stay sequential in k: every
 // lane of the group runs them on the same shared records (a broadcast
@@ -23,11 +27,11 @@
 // X[N]. The accepted candidate's states become the next iterate's rollout
 // (the same transitions on the same controls), so the iterate is rolled out
 // once, before the first iteration. The winner's controls and states come
-// from its lane's slot in shared memory.
+// from its slot in shared memory.
 //
 // Counters keep the first-accept meaning: iters counts executed iterations,
-// lsro the first-accept candidates (the winner's index + 1, or n_alphas if
-// none passes), whatever the lanes ran speculatively.
+// lsro the cost passes run (the winner's index + 1, or n_alphas if none
+// passes), the candidates a sequential first-accept search evaluates.
 //
 // A Model provides, on one scenario: x0[3]; step(px, py, th, v, w) (in
 // place); jac(...) -> Jac; stage_cost(k, ...) and grad(k, ...) without the
@@ -38,8 +42,9 @@
 // where `work` holds the per-stage records (17 floats a stage) while the
 // Riccati and adjoint sweeps read them, and the candidates' controls and
 // states (5N floats for each of min(G, n_alphas) lanes) during the line
-// search. The stride is odd, so the groups of a warp
-// reading the same element of their own scenarios fall in different banks.
+// search, whose cost passes reuse the stage terms. The stride is odd, so
+// the groups of a warp reading the same element of their own scenarios
+// fall in different banks.
 #pragma once
 
 #include "common.cuh"
@@ -121,19 +126,13 @@ struct LaneGroup {
   static_assert(G == 8 || G == 16 || G == 32, "a lane group is 8, 16 or 32 lanes");
   unsigned mask;  // the group's lanes in the warp
   int lane;       // 0..G-1
-  int base;       // the group's first lane in the warp
 
   __device__ LaneGroup() {
     const int wl = threadIdx.x & 31;
     lane = wl & (G - 1);
-    base = wl & ~(G - 1);
-    mask = (0xffffffffu >> (32 - G)) << base;
+    mask = (0xffffffffu >> (32 - G)) << (wl & ~(G - 1));  // from the group's first lane
   }
   __device__ __forceinline__ void sync() const { __syncwarp(mask); }
-  // the lowest lane whose `pred` holds, or -1
-  __device__ __forceinline__ int first(bool pred) const {
-    return __ffs((__ballot_sync(mask, pred) & mask) >> base) - 1;
-  }
 };
 
 // The whole schedule for scenario b on the calling lane group; `s` is the
@@ -234,53 +233,68 @@ __device__ void bank_solve_group(const M& m, const SolveArgs& a, int b, float* s
     if (a.first[t] == 0 && dec - a.stage_tol * (1.f + fabsf(J)) < 0.f) done = st + 1;
     grp.sync();  // kff and kfb written; the records are dead, `work` takes the candidates
 
-    // One candidate rollout at step size alpha, the plain line search's arithmetic;
-    // its controls and states go to `slot`. Returns its barrier cost, NaN
-    // made infinite.
-    auto candidate = [&](float alpha, float* slot) {
-      float cx = m.x0[0], cy = m.x0[1], cth = m.x0[2];
-      float Jc = 0.f;
-      for (int k = 0; k < N; ++k) {
-        const float dx0 = cx - X[3 * k], dx1 = cy - X[3 * k + 1], dx2 = cth - X[3 * k + 2];
-        const int f0 = 6 * k, f1 = 6 * k + 3;
-        float v = U[2 * k] + alpha * kff[2 * k] + (kfb[f0] * dx0 + kfb[f0 + 1] * dx1 + kfb[f0 + 2] * dx2);
-        float w = U[2 * k + 1] + alpha * kff[2 * k + 1] +
-                  (kfb[f1] * dx0 + kfb[f1 + 1] * dx1 + kfb[f1 + 2] * dx2);
-        v = clip_nan(v, int_lo_v, int_hi_v);
-        w = clip_nan(w, int_lo_w, int_hi_w);
-        Jc += m.stage_cost(k, cx, cy, cth, v, w) - mu * barrier(a, v, w);
-        m.step(cx, cy, cth, v, w);
-        slot[2 * k] = v;
-        slot[2 * k + 1] = w;
-        slot[2 * N + 3 * k] = cx;
-        slot[2 * N + 3 * k + 1] = cy;
-        slot[2 * N + 3 * k + 2] = cth;
-      }
-      Jc += m.terminal_cost(cx, cy, cth);
-      return isnan(Jc) ? INFINITY : Jc;
-    };
-
-    // line search: lane l tries alpha = 2^-(r0 + l); the lowest passing wins
-    int win = -1, win_lane = 0;
+    // Line search, round by round. The state pass: lane l rolls out the
+    // candidate alpha = 2^-(r0 + l), the plain line search's controls and
+    // states without its cost, into slot l.
+    int win = -1;  // the accepted candidate's slot
     for (int r0 = 0; r0 < a.n_alphas && win < 0; r0 += G) {
-      const int ai = r0 + l;
-      bool ok = false;
-      if (ai < a.n_alphas) {
-        const float alpha = ldexpf(1.f, -ai);
-        const float Jc = candidate(alpha, W + l * slot_len);
-        const float expected = -(alpha * dV1 + alpha * alpha * dV2);
-        ok = Jc <= J - a.c1 * max_nan(expected, 0.f);
+      const int n_c = a.n_alphas - r0 < G ? a.n_alphas - r0 : G;
+      if (l < n_c) {
+        const float alpha = ldexpf(1.f, -(r0 + l));
+        float* slot = W + l * slot_len;
+        float cx = m.x0[0], cy = m.x0[1], cth = m.x0[2];
+        for (int k = 0; k < N; ++k) {
+          const float dx0 = cx - X[3 * k], dx1 = cy - X[3 * k + 1], dx2 = cth - X[3 * k + 2];
+          const int f0 = 6 * k, f1 = 6 * k + 3;
+          float v = U[2 * k] + alpha * kff[2 * k] + (kfb[f0] * dx0 + kfb[f0 + 1] * dx1 + kfb[f0 + 2] * dx2);
+          float w = U[2 * k + 1] + alpha * kff[2 * k + 1] +
+                    (kfb[f1] * dx0 + kfb[f1 + 1] * dx1 + kfb[f1 + 2] * dx2);
+          v = clip_nan(v, int_lo_v, int_hi_v);
+          w = clip_nan(w, int_lo_w, int_hi_w);
+          m.step(cx, cy, cth, v, w);
+          slot[2 * k] = v;
+          slot[2 * k + 1] = w;
+          slot[2 * N + 3 * k] = cx;
+          slot[2 * N + 3 * k + 1] = cy;
+          slot[2 * N + 3 * k + 2] = cth;
+        }
       }
-      const int f = grp.first(ok);
-      if (f >= 0) {
-        win = r0 + f;
-        win_lane = f;
+      grp.sync();  // the round's slots written
+
+      // The cost passes, in first-accept order: candidate c's stage terms one
+      // stage per lane into T, then its barrier cost summed in k order, NaN
+      // made infinite, and the Armijo test; the first that passes wins.
+      for (int c = 0; c < n_c; ++c) {
+        const float* slot = W + c * slot_len;
+        for (int k = l; k < N; k += G) {
+          const float v = slot[2 * k], w = slot[2 * k + 1];
+          float xp = m.x0[0], yp = m.x0[1], tp = m.x0[2];  // the state at stage k
+          if (k > 0) {
+            const float* xk = slot + 2 * N + 3 * (k - 1);
+            xp = xk[0];
+            yp = xk[1];
+            tp = xk[2];
+          }
+          T[k] = m.stage_cost(k, xp, yp, tp, v, w) - mu * barrier(a, v, w);
+        }
+        grp.sync();  // the candidate's stage terms written
+        const float* xN = slot + 2 * N + 3 * (N - 1);
+        float Jc = 0.f;
+        for (int k = 0; k < N; ++k) Jc += T[k];
+        Jc += m.terminal_cost(xN[0], xN[1], xN[2]);
+        if (isnan(Jc)) Jc = INFINITY;
+        const float alpha = ldexpf(1.f, -(r0 + c));
+        const float expected = -(alpha * dV1 + alpha * alpha * dV2);
+        ++n_ls;
+        grp.sync();  // every lane has read T
+        if (Jc <= J - a.c1 * max_nan(expected, 0.f)) {  // the same on every lane
+          win = c;
+          break;
+        }
       }
     }
-    n_ls += win >= 0 ? win + 1 : a.n_alphas;
-    grp.sync();  // the candidates' slots written
     if (win >= 0) {
-      const float* slot = W + win_lane * slot_len;
+      const float* slot = W + win * slot_len;
       for (int i = l; i < 2 * N; i += G) U[i] = slot[i];
       for (int i = l; i < 3 * N; i += G) X[3 + i] = slot[2 * N + i];
       reg = fmaxf(reg * 0.5f, a.reg_min);

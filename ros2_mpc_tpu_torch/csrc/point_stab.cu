@@ -18,11 +18,15 @@
 //
 // What the design does about it: one scenario is a group of G lanes
 // (group_solve.cuh bank_solve_group). The per-stage derivatives and cost
-// terms run one stage per lane, the line-search candidates one step size
-// per lane, so an iteration's chain is the Riccati sweep and one candidate
-// rollout; the iterate, the gains and the candidates live in shared memory,
-// sized at launch from N and n_alphas. 4096 scenarios are 4096 * G / 32
-// warps. Each scenario keeps its own early exits and its plain version's order
+// terms run one stage per lane. The line search rolls out the candidates'
+// states one step size per lane, without the cost, then costs the
+// candidates one at a time, one stage per lane, in first-accept order, and
+// stops at the first that passes: the obstacle sums of a candidate are
+// spread over the group, and only the candidates a sequential search
+// evaluates are costed. An iteration's chain is the Riccati sweep, one
+// state rollout and N / G stage costs per candidate tried; the iterate,
+// the gains and the candidates live in shared memory, sized at launch from
+// N and n_alphas. 4096 scenarios are 4096 * G / 32 warps. Each scenario keeps its own early exits and its plain version's order
 // of operations, so K1 stays bit-equal to it. The lanes per
 // scenario and the scenarios per block are compile-time constants fixed by
 // measurement (PERF.md): geometry_sweep.py builds its own libraries with other

@@ -15,11 +15,12 @@
 // the reference windows add 5 loads per stage.
 //
 // What the design does about it is K1's: one scenario on a group of G
-// lanes, the per-stage derivatives one stage per lane and the line-search
-// candidates one step size per lane, the iterate, gains and candidates in
-// shared memory sized at launch from N and n_alphas. The derivative phase
-// reads the reference windows one stage per lane, the candidates the same
-// stage on every lane of a group, so each group first copies its
+// lanes, the per-stage derivatives one stage per lane, the line search's
+// state rollouts one step size per lane and its cost passes one candidate
+// at a time, one stage per lane, stopping at the first that passes; the
+// iterate, gains and candidates in shared memory sized at launch from N
+// and n_alphas. The derivative phase and the cost passes read the
+// reference windows one stage per lane, so each group first copies its
 // scenario's windows (5N floats) into shared memory ahead of the schedule's
 // scratch: faster than reading them from device memory at 11 of the 12
 // swept geometries (PERF.md). The terminal quadratic is added after the

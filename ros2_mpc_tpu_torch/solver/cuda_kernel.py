@@ -9,9 +9,11 @@ planes ``(..., B)`` with the scenario index minor, any B >= 1:
 
 * K1 (``csrc/point_stab.cu``, point stabilization) and K2
   (``csrc/tracking.cu``, tracking) run one scenario on a group of lanes
-  (``csrc/group_solve.cuh``): per-stage derivatives and line-search
-  candidates across lanes, the iterate in shared memory sized from N and
-  n_alphas at launch (:func:`group_geometry` mirrors it).
+  (``csrc/group_solve.cuh``): per-stage derivatives across lanes; the
+  line search rolls out its candidates' states across lanes, then costs
+  them one at a time across lanes, stopping at the first that passes; the
+  iterate in shared memory sized from N and n_alphas at launch
+  (:func:`group_geometry` mirrors it).
 
 Beside each kernel is its plain PyTorch version, :func:`point_stab_bank_plain`
 and :func:`tracking_bank_plain`: batched code over ``(B,)`` planes that

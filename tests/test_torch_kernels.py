@@ -9,12 +9,16 @@ cost rtol 1e-3, the chunk-edge bank 2e-4 / 2e-4. The TPU kernel exits per
 bands. The CUDA kernels themselves run only on the card (the `cuda`
 marker): there they are held against the plain versions.
 
-K1 and K2 run one scenario on a group of lanes with a speculative line
-search (csrc/group_solve.cuh). Their launch geometry is plain Python,
-tested here, and so is the equivalence their bit-equality rests on: a
-transcription of the group schedule on the plain version's model classes
-reproduces ``_bank_plain`` bit for bit.
+K1 and K2 run one scenario on a group of lanes (csrc/group_solve.cuh),
+whose line search rolls out a round of candidates' states one per lane and
+then costs them one at a time across the lanes, stopping at the first that
+passes. Their launch geometry is plain Python, tested here, and so is the
+equivalence their bit-equality rests on: a transcription of the group
+schedule on the plain version's model classes reproduces ``_bank_plain``
+bit for bit.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -318,13 +322,18 @@ def test_group_wrapper_raises_beyond_shared_memory_before_any_build(monkeypatch,
     assert big.launches == 0
 
 
-def _group_schedule(cfg, m, u0):
-    """csrc/group_solve.cuh bank_solve_group on (B,) planes: the iterate is
-    rolled out once, the barrier cost is summed from per-stage terms in k
-    order, every line-search candidate is evaluated from the same U, X,
-    kff and kfb and the lowest passing index wins (its states become the
-    next iterate's X), and ls_rollouts counts the winner's index + 1, or
-    n_alphas if none passes."""
+def _group_schedule(cfg, m, u0, G, log=None):
+    """csrc/group_solve.cuh bank_solve_group on (B,) planes, G lanes a
+    scenario: the iterate is rolled out once, the barrier cost is summed
+    from per-stage terms in k order, and the line search runs in rounds of
+    G step sizes. A round's state pass rolls out each candidate's controls
+    and states from the same U, X, kff and kfb (lane l: alpha =
+    2^-(r0 + l)); its cost passes then take the candidates in order, stage
+    k's term on lane k % G, summed in k order, and a scenario stops at the
+    first that passes (its states become the next iterate's X).
+    ls_rollouts counts the cost passes each scenario ran. Where ``log`` is
+    a list, every cost pass appends (iteration, step index, scenarios that
+    ran it, stages each lane costed)."""
     N, dt, A = cfg.N, cfg.dt, cfg.n_alphas
     f32 = np.float32
     lo, hi, eps, d = f32([cfg.lo_v, cfg.lo_w]), f32([cfg.hi_v, cfg.hi_w]), f32([cfg.eps_v, cfg.eps_w]), f32(1e-3)
@@ -353,7 +362,7 @@ def _group_schedule(cfg, m, u0):
     X = torch.stack(X)
     reg = torch.full((B,), cfg.reg_init)
     done, iters, lsro = (torch.zeros(B, dtype=i32) for _ in range(3))
-    for mu, st, first in zip(cfg.mus, cfg.stages, cfg.firsts):
+    for t, (mu, st, first) in enumerate(zip(cfg.mus, cfg.stages, cfg.firsts)):
         active = done <= st
         if not bool(active.any()):
             continue
@@ -378,36 +387,48 @@ def _group_schedule(cfg, m, u0):
             hit = active & (-(dV1 + dV2) - cfg.stage_tol * (1.0 + J.abs()) < 0.0)
             done = torch.where(hit, torch.full_like(done, st + 1), done)
 
-        oks, Us, Xs = [], [], []
-        for a in range(A):  # every candidate, speculatively
-            alpha = 2.0**-a
-            px, py, th = m.x0
-            Jc = torch.zeros(B)
-            cand, states = [], [X[0]]
-            for k in range(N):
-                dx0, dx1, dx2 = px - X[k, 0], py - X[k, 1], th - X[k, 2]
-                (K00, K01, K02), (K10, K11, K12) = kfb[k]
-                v = U[k, 0] + alpha * kff[k][0] + (K00 * dx0 + K01 * dx1 + K02 * dx2)
-                w = U[k, 1] + alpha * kff[k][1] + (K10 * dx0 + K11 * dx1 + K12 * dx2)
-                v, w = torch.clamp(v, il_v, ih_v), torch.clamp(w, il_w, ih_w)
-                Jc = Jc + (m.stage_cost(k, px, py, th, v, w) - mu * barrier(v, w))
-                cand.append(torch.stack([v, w]))
-                px, py, th = m.step(px, py, th, v, w)
-                states.append(torch.stack([px, py, th]))
-            Jc = Jc + m.terminal_cost(px, py, th)
-            expected = -(alpha * dV1 + alpha * alpha * dV2)
-            Jc = torch.where(torch.isnan(Jc), torch.inf, Jc)
-            oks.append(Jc <= J - cfg.c1 * torch.clamp(expected, min=0.0))
-            Us.append(torch.stack(cand))
-            Xs.append(torch.stack(states))
-        ok = torch.stack(oks)  # (A, B)
-        passed = ok.any(0)
-        win = ok.to(i32).argmax(0)  # the lowest passing index
-        lsro += torch.where(active, torch.where(passed, win + 1, A), 0).to(i32)
-        acc = passed & active
-        cols = torch.arange(B)
-        U = torch.where(acc, torch.stack(Us)[win, ..., cols].permute(1, 2, 0), U)
-        X = torch.where(acc, torch.stack(Xs)[win, ..., cols].permute(1, 2, 0), X)
+        searching, acc = active.clone(), torch.zeros(B, dtype=torch.bool)
+        Unew, Xnew = U.clone(), X.clone()
+        for r0 in range(0, A, G):
+            if not bool(searching.any()):
+                break
+            slots = []  # the state pass: each candidate of the round, no cost
+            for a in range(r0, min(r0 + G, A)):
+                alpha = 2.0**-a
+                px, py, th = m.x0
+                cand, states = [], [X[0]]
+                for k in range(N):
+                    dx0, dx1, dx2 = px - X[k, 0], py - X[k, 1], th - X[k, 2]
+                    (K00, K01, K02), (K10, K11, K12) = kfb[k]
+                    v = U[k, 0] + alpha * kff[k][0] + (K00 * dx0 + K01 * dx1 + K02 * dx2)
+                    w = U[k, 1] + alpha * kff[k][1] + (K10 * dx0 + K11 * dx1 + K12 * dx2)
+                    v, w = torch.clamp(v, il_v, ih_v), torch.clamp(w, il_w, ih_w)
+                    cand.append(torch.stack([v, w]))
+                    px, py, th = m.step(px, py, th, v, w)
+                    states.append(torch.stack([px, py, th]))
+                slots.append((alpha, torch.stack(cand), torch.stack(states)))
+            for c, (alpha, Uc, Xc) in enumerate(slots):  # the cost passes, in order
+                run = searching.clone()
+                if not bool(run.any()):
+                    break
+                lsro += run.to(i32)
+                T, lanes = [None] * N, [list(range(lane, N, G)) for lane in range(G)]
+                for ks in lanes:
+                    for k in ks:
+                        T[k] = m.stage_cost(k, *Xc[k], Uc[k, 0], Uc[k, 1]) - mu * barrier(Uc[k, 0], Uc[k, 1])
+                Jc = torch.zeros(B)
+                for k in range(N):
+                    Jc = Jc + T[k]
+                Jc = Jc + m.terminal_cost(*Xc[N])
+                Jc = torch.where(torch.isnan(Jc), torch.inf, Jc)
+                expected = -(alpha * dV1 + alpha * alpha * dV2)
+                ok = run & (Jc <= J - cfg.c1 * torch.clamp(expected, min=0.0))
+                Unew = torch.where(ok, Uc, Unew)
+                Xnew = torch.where(ok, Xc, Xnew)
+                acc, searching = acc | ok, searching & ~ok
+                if log is not None:
+                    log.append((t, r0 + c, run, lanes))
+        U, X = Unew, Xnew
         grown = torch.clamp(reg * 10.0 + cfg.reg_min, max=cfg.reg_max)
         reg = torch.where(active, torch.where(acc, torch.clamp(reg * 0.5, min=cfg.reg_min), grown), reg)
 
@@ -481,22 +502,92 @@ LINE_SEARCH_BANKS = {
 }
 
 
-@pytest.mark.parametrize("bank", list(LINE_SEARCH_BANKS))
-def test_speculative_line_search_reproduces_first_accept(bank):
+@functools.cache
+def _line_search_bank(bank, n_alphas):
+    """A B=64, N=20 line-search bank with the default schedule at
+    ``n_alphas`` step sizes, and _bank_plain's result on it."""
+    cfg, model, u0 = LINE_SEARCH_BANKS[bank](np.random.default_rng(11), 64, 20)
+    cfg = cfg._replace(n_alphas=n_alphas)
+    return cfg, model, u0, ck._bank_plain(cfg, model, u0)
+
+
+@functools.cache
+def _line_search_run(bank, G, n_alphas):
+    """(cfg, _bank_plain's result, the group schedule's at G lanes, its log
+    of cost passes) on the bank."""
+    cfg, model, u0, ref = _line_search_bank(bank, n_alphas)
+    log = []
+    return cfg, ref, _group_schedule(cfg, model, u0, G, log), log
+
+
+def _passes_per_iteration(log, B):
+    """{iteration: (B,) cost passes each scenario ran in it}, from the log."""
+    out = {}
+    for t, _, run, _ in log:
+        out[t] = out.get(t, torch.zeros(B, dtype=torch.int32)) + run.to(torch.int32)
+    return out
+
+
+# (bank, G, n_alphas): every bank at the kernels' G=8 and the default 10
+# step sizes (named by the bank alone), at the tick's 6 < G, and at G=16,
+# where 10 step sizes take one round instead of two (at 6 step sizes G
+# moves only the lane log, not the arithmetic)
+LINE_SEARCH_CASES = [
+    pytest.param(bank, G, A, id=bank if (G, A) == (8, 10) else f"{bank}-G{G}-A{A}")
+    for bank in LINE_SEARCH_BANKS
+    for G, A in ((8, 10), (8, 6), (16, 10))
+]
+
+
+@pytest.mark.parametrize("bank,G,n_alphas", LINE_SEARCH_CASES)
+def test_speculative_line_search_reproduces_first_accept(bank, G, n_alphas):
     """The equivalence K1's and K2's lane groups rest on, on a B=64, N=20
-    bank with the default schedule: the group schedule gives _bank_plain's
-    U, X, cost, KKT residual, iters and ls_rollouts bit for bit. The
-    tracking banks take the yaw wrap (on and off), the terminal quadratic
-    and the adjoint seed through the same schedule."""
-    Bn, Nh = 64, 20
-    cfg, model, u0 = LINE_SEARCH_BANKS[bank](np.random.default_rng(11), Bn, Nh)
-    ref = ck._bank_plain(cfg, model, u0)
-    got = _group_schedule(cfg, model, u0)
+    bank with the default schedule: the group schedule (state pass, then
+    cost passes in order up to the first that passes) gives _bank_plain's
+    U, X, cost, KKT residual, iters and ls_rollouts bit for bit, with
+    fewer step sizes than lanes (the tick's 6 < 8) and with rounds of 8 of
+    10. The tracking banks take the yaw wrap (on and off), the terminal
+    quadratic and the adjoint seed through the same schedule."""
+    _, ref, got, _ = _line_search_run(bank, G, n_alphas)
     for name, a, b in zip(("U", "X", "cost", "kkt", "iters", "ls_rollouts"), got, ref):
         assert torch.equal(a, b), name
     iters, ls = ref[4], ref[5]
     # the bank exercises first accepts beyond alpha = 1
     assert int((ls > iters).sum()) > 0 and int(iters.sum()) > 0
+
+
+def test_line_search_second_round():
+    """At G=8 lanes and 10 step sizes some iteration of the bank needs more
+    than G candidates: the cost passes go on into a second round, whose
+    state pass rolls out step sizes 2^-8 and 2^-9, and the result stays
+    _bank_plain's."""
+    _, ref, got, log = _line_search_run("obstacle_active", 8, 10)
+    per = _passes_per_iteration(log, got[0].shape[-1])
+    assert max(int(p.max()) for p in per.values()) > 8
+    assert any(a >= 8 for _, a, _, _ in log)
+    for name, a, b in zip(("U", "X", "cost", "kkt", "iters", "ls_rollouts"), got, ref):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("G", [8, 16])
+@pytest.mark.parametrize("bank", ["parity", "tracking_wrap"])
+def test_cost_passes_count_ls_rollouts(bank, G):
+    """ls_rollouts means the cost passes the group schedule runs: counted
+    pass by pass, they equal _bank_plain's ls_rollouts for every scenario.
+    Each iteration's passes take the step indices 0, 1, ... in order and
+    end at the first accept (or the last index), and each pass costs every
+    stage once, at most ceil(N / G) stages a lane."""
+    cfg, ref, got, log = _line_search_run(bank, G, 10)
+    B = got[0].shape[-1]
+    counted = sum(_passes_per_iteration(log, B).values())
+    assert torch.equal(counted, ref[5]) and torch.equal(got[5], ref[5])
+    seen = {}
+    for t, a, run, lanes in log:
+        for b in torch.nonzero(run).flatten().tolist():
+            assert seen.get((t, b), -1) == a - 1  # no step index skipped or repeated
+            seen[(t, b)] = a
+        assert sorted(k for ks in lanes for k in ks) == list(range(cfg.N))
+        assert max(len(ks) for ks in lanes) == -(-cfg.N // G)
 
 
 @pytest.fixture
